@@ -9,20 +9,40 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compiles every CUDA source of the port with ``nvcc``;
 3. kernel  — holds the fused row-sparse update kernel against its plain
-   PyTorch version on the card, for every optimizer x momentum x L2 x state
-   dtype at the flagship shape (table 36,992 x 256, K = 2,208 pop^0.4
-   indices with duplicates and sentinels) and at one unaligned width
-   (d = 225), and times both with CUDA events;
+   PyTorch version on the card in each of its modes (K1-K4, module doc of
+   ``ops/kernels/sparse_update.py``): every optimizer x momentum x L2 x
+   state dtype at the flagship shape (table 36,992 x 256, K = 2,208 pop^0.4
+   indices with duplicates and sentinels) and at the unaligned widths 225
+   and 300; the stochastic-rounding mode (``bfloat16_sr``, adagrad and adam
+   x momentum x L2, a slow-v1 adam, widths 300, 128 and 12) with the stored bf16
+   state bit-equal on rows touched once and within one bf16 ulp elsewhere;
+   then times each mode at its main path's shape with CUDA events
+   (``kernel_timing``, one line per mode);
 4. reference — the training slice on the card against the same slice on
    the CPU at a small size, step by step;
 5. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
    batch 80, bpr-max/elu-0.5, 2048 pop^0.4 alias negatives, constrained
    embedding, adagrad + momentum 0.4) for one epoch on synthetic
    RetailRocket-shaped data, then ``evaluate`` on held-out sessions, with
-   the kernel's launch counter read around that run;
-6. learn   — the markov-chain drive of the verify recipe through the port,
+   the kernel's launch counters read around that run;
+6. train_sr_control — the same with ``opt_state_dtype="bfloat16_sr"``
+   but adagrad's bf16 accumulator stored round-to-nearest (no SR; K1 with
+   bf16 state): the reading that ``train_sr``'s limit must exclude;
+7. train_sr — the same with stochastic rounding (K2): its loss within 2%
+   of the train phase's, its summed ``Wy`` accumulator within
+   ``SR_ACC_REL_LIMIT`` of the train phase's float32 one, the control's
+   outside that limit;
+8. train_adam_sr — the flagship with adam (learning rate 0.001) and
+   ``bfloat16_sr`` state (K3 on the full-width ``Wy``);
+9. train_onehot — the RSC15 config of ``param_samples/rsc15_bpr-max.py``
+   (GRU-100, one-hot input, batch 32, 2048 uniform negatives, adagrad +
+   momentum 0.3) for one epoch on synthetic sessions over RSC15's 37,483
+   items (K4 on ``Wx0``, K1 on ``Wy``);
+10. learn  — the markov-chain drive of the verify recipe through the port,
    which must reach recall@1 >= 0.9;
-7. kernels — one JSON line per the port's kernel table.
+11. learn_sr — the same chain with adam, an embedding of 12 and
+   ``bfloat16_sr`` state (K3 on ``E`` and ``Wy``), recall@1 >= 0.9;
+12. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; a failed check raises, and the script
 then exits non-zero. The last line is
@@ -49,34 +69,44 @@ DEVICE = "cuda"
 N_ITEMS = 36_968
 N_EVENTS = 100_000
 MEAN_SESSION_LEN = 5.5
+# RSC15: the 37,483 training items and 31.6M clicks / 7.97M sessions that
+# Hidasi et al. (ICLR 2016, section 4.1) report, at the same event count
+RSC15_ITEMS = 37_483
+RSC15_MEAN_SESSION_LEN = 3.97
+SR_SEED = (0x2545F491, 0)  # (seed, row offset) of the kernel phase's SR cases
 
 ATOL_F32, RTOL_F32 = 1e-6, 1e-5   # duplicate sums are added in another order
 BF16_REL = 2.0**-7                # one bfloat16 ulp, relative, at most
+SR_LOSS_REL_LIMIT = 0.02  # train_sr's epoch loss against train's, relative
+# train_sr's summed Wy accumulator against train's (float32), relative: set
+# between the SR reading and the round-to-nearest control's (PERF.md)
+SR_ACC_REL_LIMIT = 3e-3
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def synth_split(seed=0):
+def synth_split(seed=0, n_items=N_ITEMS, mean_len=MEAN_SESSION_LEN):
     """bench.py::synth_data's generator at N_EVENTS events, split into train
     (the first 90% of sessions) and test (the rest). Item ids that the zipf
     draw missed in train overwrite random repeated train events, so all
-    N_ITEMS items are in the training catalog (the tables are full width)."""
+    ``n_items`` items are in the training catalog (the tables are full
+    width)."""
     import pandas as pd
 
     rng = np.random.RandomState(seed)
-    n_sessions = int(N_EVENTS / MEAN_SESSION_LEN)
-    lens = 2 + rng.geometric(1.0 / (MEAN_SESSION_LEN - 2.0), size=n_sessions)
+    n_sessions = int(N_EVENTS / mean_len)
+    lens = 2 + rng.geometric(1.0 / (mean_len - 2.0), size=n_sessions)
     total = int(lens.sum())
-    ranks = np.arange(1, N_ITEMS + 1, dtype=np.float64)
+    ranks = np.arange(1, n_items + 1, dtype=np.float64)
     p = 1.0 / ranks**0.8
     p /= p.sum()
-    items = rng.choice(N_ITEMS, size=total, p=p).astype(np.int64)
+    items = rng.choice(n_items, size=total, p=p).astype(np.int64)
     n_train = int(lens[: n_sessions * 9 // 10].sum())
     _, first = np.unique(items[:n_train], return_index=True)
     repeats = np.setdiff1d(np.arange(n_train), first)  # not an item's only event
-    missing = np.setdiff1d(np.arange(N_ITEMS), items[:n_train])
+    missing = np.setdiff1d(np.arange(n_items), items[:n_train])
     items[rng.choice(repeats, size=len(missing), replace=False)] = missing
     sess = np.repeat(np.arange(n_sessions, dtype=np.int64), lens)
     data = pd.DataFrame(
@@ -108,6 +138,19 @@ def flagship_cfg(**kw):
                 bpreg=1.95, learning_rate=0.05, momentum=0.4,
                 dropout_p_embed=0.0, dropout_p_hidden=0.0,
                 constrained_embedding=True, n_epochs=1, chunk_size=512)
+    args.update(kw)
+    return GRU4RecConfig(**args)
+
+
+def rsc15_cfg(**kw):
+    """param_samples/rsc15_bpr-max.py, cut from 10 epochs to one."""
+    from gru4rec_tpu_torch import GRU4RecConfig
+
+    args = dict(layers=[100], loss="bpr-max", final_act="elu-0.5", hidden_act="tanh",
+                adapt="adagrad", n_epochs=1, batch_size=32, dropout_p_embed=0.0,
+                dropout_p_hidden=0.0, learning_rate=0.2, momentum=0.3,
+                sample_alpha=0.0, n_sample=2048, bpreg=1.0,
+                constrained_embedding=False, chunk_size=512)
     args.update(kw)
     return GRU4RecConfig(**args)
 
@@ -175,7 +218,18 @@ def _index_set(rng, n_items, K, B):
     return np.concatenate([lanes, neg]).astype(np.int32)
 
 
-def _make_case(adapt, momentum, lmbd, state_dtype, n_rows, d, idx, seed):
+def _lane_set(rng, n_items, B):
+    """B one-hot input indices of one step: popularity-weighted lanes, a few
+    masked to the sentinel (the ``X_scatter`` of ``Wx0``)."""
+    ranks = np.arange(1, n_items + 1, dtype=np.float64)
+    p = 1.0 / ranks**0.8
+    lanes = rng.choice(n_items, size=B, p=p / p.sum())
+    lanes[rng.choice(B, size=max(B // 8, 1), replace=False)] = SENTINEL
+    return lanes.astype(np.int32)
+
+
+def _make_case(adapt, momentum, lmbd, state_dtype, n_rows, d, idx, seed,
+               adapt_params=()):
     import torch
 
     from gru4rec_tpu_torch import GRU4RecConfig
@@ -183,18 +237,25 @@ def _make_case(adapt, momentum, lmbd, state_dtype, n_rows, d, idx, seed):
 
     cfg = GRU4RecConfig(adapt=adapt, momentum=momentum, lmbd=lmbd,
                         learning_rate=1.0 if adapt == "adadelta" else 0.05,
-                        opt_state_dtype=state_dtype)
+                        opt_state_dtype=state_dtype, adapt_params=list(adapt_params))
     opt = make_optimizer(cfg)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     table = torch.randn((n_rows, d), generator=gen, device=DEVICE)
     st = opt.init_state(table, sparse=True)
     for k, v in st.items():
-        # nontrivial state; adam's count block holds small integers
+        # nontrivial state; adam's count block holds small integers (under
+        # SR as base-256 limbs in lanes 0..2, the other lanes zero)
         if k == "acc2" and adapt == "adam":
             v[:, :2 * d].copy_(torch.rand((n_rows, 2 * d), generator=gen, device=DEVICE))
-            cnt = torch.randint(0, 6, (n_rows, 1), generator=gen, device=DEVICE)
-            v[:, 2 * d:].copy_(cnt.expand(n_rows, v.shape[1] - 2 * d))
+            if opt.sr_active(st):
+                v[:, 2 * d:].zero_()
+                for lane, top in ((0, 256), (1, 3)):
+                    v[:, 2 * d + lane].copy_(torch.randint(
+                        0, top, (n_rows,), generator=gen, device=DEVICE))
+            else:
+                cnt = torch.randint(0, 6, (n_rows, 1), generator=gen, device=DEVICE)
+                v[:, 2 * d:].copy_(cnt.expand(n_rows, v.shape[1] - 2 * d))
         else:
             v.copy_(torch.rand(v.shape, generator=gen, device=DEVICE) * 0.3)
     g = torch.randn((len(idx), d), generator=gen, device=DEVICE) * 0.1
@@ -219,76 +280,172 @@ def _compare(name, a, b):
     return float(err.max())
 
 
-def phase_kernel():
-    """Kernel against plain version for every combination; returns the
-    main-path combination's error and timings."""
+def _bits_equal(a, b):
     import torch
 
-    from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
+    return a.contiguous().view(torch.int16) == b.contiguous().view(torch.int16)
+
+
+def _kernel_vs_plain(opt, table, idx_t, g, st):
+    """One call of the kernel and one of its plain version from the same
+    inputs. Every tensor within tolerance (``_compare``); rows no index
+    touches bit-identical. Stochastically rounded state (SR seed
+    ``SR_SEED``): bit-equal on the rows touched exactly once, within one
+    bf16 ulp on rows with duplicate indices (the plain version's
+    ``index_add_`` sums those in atomic order, which may flip a rounding
+    decision), adam's limb counts exact and lanes 3.. zero. Returns the max
+    abs error, the bit-equal share of the SR state's touched entries (None
+    without SR) and the launch mode."""
+    import torch
+
     from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    n_rows, d = table.shape
+    sr_seed = SR_SEED if opt.sr_active(st) else None
+    t_k, st_k = table.clone(), {k: v.clone() for k, v in st.items()}
+    t_p, st_p = table.clone(), {k: v.clone() for k, v in st.items()}
+    before = dict(sparse_update.launches_by_mode)
+    sparse_update.fused_update(opt, t_k, idx_t, g, st_k, sr_seed=sr_seed)
+    opt.apply_sparse_plain(t_p, idx_t, g, st_p, sr_seed=sr_seed)
+    torch.cuda.synchronize()
+    mode = [m for m in sparse_update.MODES
+            if sparse_update.launches_by_mode[m] != before[m]]
+    if mode != [sparse_update.mode_of(opt.adapt, d, sr_seed is not None)]:
+        raise AssertionError(f"launch counted as {mode}")
+    counts = torch.bincount(idx_t[idx_t < n_rows].long(), minlength=n_rows)
+    touched, once = counts > 0, counts == 1
+    errs = {"table": _compare("table", t_k, t_p)}
+    share = None
+    for k in st:
+        a, b = st_k[k], st_p[k]
+        if sr_seed is not None and k in ("acc", "acc2"):
+            if k == "acc2":  # adam: limbs exact, then [acc | meang]
+                if not torch.equal(a[:, 2 * d:], b[:, 2 * d:]) or bool(a[:, 2 * d + 3:].any()):
+                    raise AssertionError("adam limb counts differ")
+                a, b = a[:, :2 * d], b[:, :2 * d]
+            eq = _bits_equal(a, b)
+            if not bool(eq[once].all()):
+                raise AssertionError(f"{k}: SR state differs on rows touched once")
+            share = float(eq[touched].float().mean())
+        errs[k] = _compare(k, a, b)
+    for name, a, b in [("table", t_k, table)] + [(k, st_k[k], st[k]) for k in st]:
+        if not torch.equal(a[~touched], b[~touched]):
+            raise AssertionError(f"kernel changed untouched rows of {name}")
+    return max(errs.values()), share, mode[0]
+
+
+def phase_kernel():
+    """Kernel against plain version in every mode and combination."""
+    from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
 
     rng = np.random.RandomState(0)
     n_items, B, n_sample = N_ITEMS, 80, 2048
     n_rows, d = pad_items(n_items, 128), pad_cols(224 + 1)
     K = 2 * B + n_sample
     idx = _index_set(rng, n_items, K, B)
-    cases = []
-    for adapt in ("adagrad", "rmsprop", "adadelta", "adam"):
+    adapts = ("adagrad", "rmsprop", "adadelta", "adam")
+    cases = []  # (adapt, momentum, lmbd, opt_state_dtype, width, adapt_params)
+    for adapt in adapts:
         for momentum in (0.0, 0.4):
             for lmbd in (0.0, 0.01):
                 for sd in ("float32", "bfloat16"):
-                    cases.append((adapt, momentum, lmbd, sd, d))
-    for adapt in ("adagrad", "rmsprop", "adadelta", "adam"):
-        cases.append((adapt, 0.4, 0.01, "bfloat16", 225))
+                    cases.append((adapt, momentum, lmbd, sd, d, ()))
+    for adapt in adapts:
+        cases.append((adapt, 0.4, 0.01, "bfloat16", 225, ()))
+        for sd in ("float32", "bfloat16"):
+            cases.append((adapt, 0.4, 0.01, sd, 300, ()))
+    for adapt in ("adagrad", "adam"):
+        for momentum in (0.0, 0.4):
+            for lmbd in (0.0, 0.01):
+                cases.append((adapt, momentum, lmbd, "bfloat16_sr", d, ()))
+        for width in (300, 128, 12):
+            cases.append((adapt, 0.4, 0.01, "bfloat16_sr", width, ()))
+    cases.append(("adam", 0.4, 0.01, "bfloat16_sr", d, (0.995, 0.999)))
     results = []
-    main_err = None
-    for ci, (adapt, momentum, lmbd, sd, width) in enumerate(cases):
+    for ci, (adapt, momentum, lmbd, sd, width, ap) in enumerate(cases):
         opt, table, idx_t, g, st = _make_case(adapt, momentum, lmbd, sd, n_rows,
-                                              width, idx, seed=ci)
-        t_k, st_k = table.clone(), {k: v.clone() for k, v in st.items()}
-        t_p, st_p = table.clone(), {k: v.clone() for k, v in st.items()}
-        sparse_update.fused_update(opt, t_k, idx_t, g, st_k)
-        opt.apply_sparse_plain(t_p, idx_t, g, st_p)
-        torch.cuda.synchronize()
-        errs = {"table": _compare("table", t_k, t_p)}
-        for k in st:
-            errs[k] = _compare(k, st_k[k], st_p[k])
-        touched = torch.zeros(n_rows, dtype=torch.bool, device=DEVICE)
-        touched[idx_t[idx_t < n_rows].long()] = True
-        if not torch.equal(t_k[~touched], table[~touched]):
-            raise AssertionError("kernel changed untouched rows")
-        case = {"adapt": adapt, "momentum": momentum, "lmbd": lmbd,
-                "opt_state_dtype": sd, "d": width,
+                                              width, idx, seed=ci, adapt_params=ap)
+        err, share, mode = _kernel_vs_plain(opt, table, idx_t, g, st)
+        case = {"mode": mode, "adapt": adapt, "momentum": momentum, "lmbd": lmbd,
+                "opt_state_dtype": sd, "d": width, "adapt_params": list(ap),
                 "state": {k: str(v.dtype).replace("torch.", "") for k, v in st.items()},
-                "max_abs_err": max(errs.values())}
+                "max_abs_err": err}
+        if share is not None:
+            case["sr_bit_equal_share"] = share
         results.append(case)
-        if (adapt, momentum, lmbd, sd, width) == ("adagrad", 0.4, 0.0, "bfloat16", d):
-            main_err = case["max_abs_err"]
     emit({"phase": "kernel", "n_rows": n_rows, "K": K, "cases": results})
 
-    # timing at the main path's combination (adagrad, f32 acc, bf16 velocity)
-    opt, table, idx_t, g, st = _make_case("adagrad", 0.4, 0.0, "bfloat16", n_rows,
-                                          d, idx, seed=99)
+
+def _row_bytes(opt, st, d, sr):
+    """Bytes that the update of one distinct row must read and write: its
+    table row, velocity row and state row, each read and written once, but
+    of adam's 128-lane count block only the lanes that carry the count: one
+    lane read and all 128 written (each holds the count), or under SR the
+    three limb lanes read and written (the other lanes stay 0)."""
+    row = 2 * d * 4
+    for k, v in st.items():
+        es = v.element_size()
+        if k == "acc2" and opt.adapt == "adam":
+            read, written = (3, 3) if sr else (1, v.shape[1] - 2 * d)
+            row += (4 * d + read + written) * es
+        else:
+            row += 2 * v.shape[1] * es
+    return row
+
+
+def phase_kernel_timing():
+    """Each mode at its main path's shape and settings: one kernel-vs-plain
+    check, then CUDA-event medians of the kernel's and the plain version's
+    wrapper calls with the 50 MB L2 flushed before each, and the byte
+    bound: the K indices and gradient rows read once, plus ``_row_bytes``
+    for each distinct row. Returns {mode: timing}."""
+    import torch
+
+    from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    rng = np.random.RandomState(0)
+    B = 80
+    n_rows, d = pad_items(N_ITEMS, 128), pad_cols(224 + 1)
+    K = 2 * B + 2048
+    idx = _index_set(rng, N_ITEMS, K, B)
+    rsc_rows = pad_items(RSC15_ITEMS, 128)
+    rows = {  # mode: (main path, adapt, momentum, state dtype, n_rows, d, indices)
+        "K1": ("train: flagship Wy", "adagrad", 0.4, "bfloat16", n_rows, d, idx),
+        "K2": ("train_sr: flagship Wy", "adagrad", 0.4, "bfloat16_sr", n_rows, d, idx),
+        "K3": ("train_adam_sr: flagship Wy", "adam", 0.4, "bfloat16_sr", n_rows, d, idx),
+        "K4": ("train_onehot: RSC15 Wx0", "adagrad", 0.3, "bfloat16", rsc_rows, 3 * 100,
+               _lane_set(rng, RSC15_ITEMS, 32)),
+    }
     flush = torch.empty(64 * 2**20, dtype=torch.int8, device=DEVICE)
     cold = lambda: flush.zero_()  # evict the 50 MB L2 between timed calls
-    kern = lambda: sparse_update.fused_update(opt, table, idx_t, g, st)
-    plain = lambda: opt.apply_sparse_plain(table, idx_t, g, st)
-    for f in (kern, plain):
-        f()
-    torch.cuda.synchronize()
-    ms = median_ms(kern, 200, cold)
-    plain_ms = median_ms(plain, 50, cold)
-    U = int(torch.unique(idx_t[idx_t < n_rows]).numel())
-    vel_item = st["velocity"].element_size()
-    acc_item = st["acc"].element_size()
-    bytes_moved = (K * 4 + K * d * 4                      # indices, gradient rows
-                   + 2 * U * d * (4 + acc_item + vel_item))  # rows read + written
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bytes": bytes_moved, "distinct_rows": U, "K": K,
-              "max_abs_err": main_err}
-    emit({"phase": "kernel_timing", **timing})
-    return timing
+    out = {}
+    for mode, (path, adapt, momentum, sd, rows_n, width, ix) in rows.items():
+        opt, table, idx_t, g, st = _make_case(adapt, momentum, 0.0, sd, rows_n, width,
+                                              ix, seed=99)
+        err, share, got_mode = _kernel_vs_plain(opt, table, idx_t, g, st)
+        if got_mode != mode:
+            raise AssertionError(f"{mode} case launched as {got_mode}")
+        sr_seed = SR_SEED if opt.sr_active(st) else None
+        kern = lambda: sparse_update.fused_update(opt, table, idx_t, g, st, sr_seed=sr_seed)
+        plain = lambda: opt.apply_sparse_plain(table, idx_t, g, st, sr_seed=sr_seed)
+        for f in (kern, plain):
+            f()
+        torch.cuda.synchronize()
+        ms = median_ms(kern, 200, cold)
+        plain_ms = median_ms(plain, 50, cold)
+        Kn = len(ix)
+        U = int(torch.unique(idx_t[idx_t < rows_n]).numel())
+        bytes_moved = (Kn * 4 + Kn * width * 4   # indices, gradient rows
+                       + U * _row_bytes(opt, st, width, sr_seed is not None))
+        out[mode] = {"main_path": path, "adapt": adapt, "momentum": momentum,
+                     "opt_state_dtype": sd, "n_rows": rows_n, "d": width, "K": Kn,
+                     "distinct_rows": U, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                     "bytes": bytes_moved, "max_abs_err": err,
+                     "sr_bit_equal_share": share}
+        emit({"phase": "kernel_timing", "mode": mode, **out[mode]})
+    return out
 
 
 def phase_reference():
@@ -331,43 +488,147 @@ def phase_reference():
         raise AssertionError(f"card and CPU disagree: loss {loss_err}, Wy {w_err}")
 
 
-def phase_train(smi_line):
+def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
+    """``GRU4Rec.fit`` for one epoch then ``evaluate``, with the kernel's
+    launch counters set to 0 just before and read just after. ``per_step``
+    = {mode: launches per step} that the path must show (every other mode
+    none). Returns the phase's JSON record."""
     import torch
 
     from gru4rec_tpu_torch import GRU4Rec, evaluate
     from gru4rec_tpu_torch.ops.kernels import sparse_update
 
-    train, test = synth_split()
-    model = GRU4Rec(flagship_cfg(), device=DEVICE)
-
+    model = GRU4Rec(cfg, device=DEVICE)
     sparse_update.reset_launches()
-    model.fit(train, n_epochs=1)
-    rec, mrr = evaluate(model, test, cut_off=[1, 5, 20], batch_size=512)
+    model.fit(train)
+    rec, mrr = evaluate(model, test, cut_off=list(cut_off), batch_size=512)
     torch.cuda.synchronize()
-    launches = sparse_update.launches
+    by_mode = dict(sparse_update.launches_by_mode)
 
-    stats = model.epoch_stats[0]
-    steps = stats["steps"]
-    if model.n_items != N_ITEMS:
-        raise AssertionError(f"catalog is {model.n_items} items, not {N_ITEMS}")
+    steps = sum(e["steps"] for e in model.epoch_stats)
+    stats = model.epoch_stats[-1]
     if not math.isfinite(stats["loss"]):
-        raise AssertionError(f"training loss is not finite: {stats['loss']}")
-    if launches != steps:
-        raise AssertionError(f"kernel launched {launches} times over {steps} steps")
+        raise AssertionError(f"{phase}: training loss is not finite: {stats['loss']}")
+    for m in sparse_update.MODES:
+        if by_mode[m] != per_step.get(m, 0) * steps:
+            raise AssertionError(f"{phase}: {m} launched {by_mode[m]} times over "
+                                 f"{steps} steps, expected {per_step.get(m, 0)} per step")
     for v in rec + mrr:
         if not (0.0 <= v <= 1.0):
-            raise AssertionError(f"metric out of range: {rec} {mrr}")
-    Wy = model.params["Wy"]
-    if not bool(torch.isfinite(Wy).all()):
-        raise AssertionError("non-finite weights after training")
-    emit({"phase": "train", "n_items": model.n_items, "train_events": len(train),
-          "steps": steps, "events": stats["events"], "loss": stats["loss"],
-          "seconds": stats["seconds"],
-          "events_per_s": stats["events"] / stats["seconds"],
-          "recall": dict(zip(["@1", "@5", "@20"], rec)),
-          "mrr": dict(zip(["@1", "@5", "@20"], mrr)),
-          "sparse_update_launches": launches, "card": smi_line})
-    return launches
+            raise AssertionError(f"{phase}: metric out of range: {rec} {mrr}")
+    tables = {"Wy": model.params["Wy"]}
+    tables.update({"E": model.params["E"]} if "E" in model.params else {})
+    if not cfg.constrained_embedding and not cfg.embedding:
+        tables["Wx0"] = model.params["Wx"][0]
+    for name, t in tables.items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{phase}: non-finite weights in {name}")
+    names = [f"@{c}" for c in cut_off]
+    record = {"phase": phase, "n_items": model.n_items, "train_events": len(train),
+              "tables": {k: list(v.shape) for k, v in tables.items()},
+              "opt_state": {k: {s: str(v.dtype).replace("torch.", "") for s, v in st.items()}
+                            for k, st in model._train_state.opt_state["sparse"].items()},
+              "acc_sums": {k: float(st["acc"].double().sum())
+                           for k, st in model._train_state.opt_state["sparse"].items()
+                           if "acc" in st},
+              "steps": steps, "events": stats["events"], "loss": stats["loss"],
+              "seconds": stats["seconds"],
+              "events_per_s": stats["events"] / stats["seconds"],
+              "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
+              "launches": by_mode, "card": smi_line}
+    emit(record)
+    return record
+
+
+def phase_train(smi_line):
+    """The flagship (K1 on Wy, once per step)."""
+    train, test = synth_split()
+    rec = _train("train", flagship_cfg(), train, test, smi_line, {"K1": 1})
+    if rec["n_items"] != N_ITEMS:
+        raise AssertionError(f"catalog is {rec['n_items']} items, not {N_ITEMS}")
+    return rec
+
+
+def phase_train_sr_control(smi_line):
+    """The control of train_sr's loss check: the flagship with bfloat16_sr
+    state but adagrad's bf16 accumulator stored round-to-nearest. With
+    ``Optimizer.sr_active`` reporting False the state keeps its bf16 layout
+    and the kernel runs its non-SR mode (K1) on it, once per step."""
+    from gru4rec_tpu_torch.train.optimizers import Optimizer
+
+    train, test = synth_split()
+    sr_active = Optimizer.sr_active
+    Optimizer.sr_active = lambda self, st: False
+    try:
+        rec = _train("train_sr_control", flagship_cfg(opt_state_dtype="bfloat16_sr"),
+                     train, test, smi_line, {"K1": 1})
+    finally:
+        Optimizer.sr_active = sr_active
+    if rec["opt_state"]["Wy"]["acc"] != "bfloat16":
+        raise AssertionError(f"control state is not bfloat16: {rec['opt_state']}")
+    return rec
+
+
+def phase_train_sr(smi_line, ref, control):
+    """Path A: the flagship with bfloat16_sr state (K2 on Wy, once per
+    step), on the train phase's data, seed and negatives, against ``ref``
+    (the train phase: bfloat16 velocity, float32 acc) and ``control`` (its
+    accumulator stored round-to-nearest): the loss within 2% of ref's; the
+    summed Wy accumulator within ``SR_ACC_REL_LIMIT`` of ref's, where
+    stochastic rounding keeps it unbiased, and the control's outside that
+    limit, since round-to-nearest drops the small increments of large
+    sums."""
+    train, test = synth_split()
+    rec = _train("train_sr", flagship_cfg(opt_state_dtype="bfloat16_sr"), train, test,
+                 smi_line, {"K2": 1})
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    out = {"phase": "train_sr_vs_train", "loss": rec["loss"], "train_loss": ref["loss"],
+           "control_loss": control["loss"],
+           "loss_rel_diff": rel(rec["loss"], ref["loss"]),
+           "control_loss_rel_diff": rel(control["loss"], ref["loss"]),
+           "acc_sum": rec["acc_sums"]["Wy"], "train_acc_sum": ref["acc_sums"]["Wy"],
+           "control_acc_sum": control["acc_sums"]["Wy"],
+           "acc_rel_diff": rel(rec["acc_sums"]["Wy"], ref["acc_sums"]["Wy"]),
+           "control_acc_rel_diff": rel(control["acc_sums"]["Wy"], ref["acc_sums"]["Wy"]),
+           "loss_limit": SR_LOSS_REL_LIMIT, "acc_limit": SR_ACC_REL_LIMIT}
+    emit(out)
+    if out["loss_rel_diff"] > SR_LOSS_REL_LIMIT:
+        raise AssertionError(f"bfloat16_sr loss {rec['loss']} is "
+                             f"{out['loss_rel_diff']:.3g} off {ref['loss']}")
+    if out["acc_rel_diff"] > SR_ACC_REL_LIMIT:
+        raise AssertionError(f"bfloat16_sr accumulator sum is {out['acc_rel_diff']:.3g} "
+                             f"off the float32 one")
+    if out["control_acc_rel_diff"] <= SR_ACC_REL_LIMIT:
+        raise AssertionError(f"the round-to-nearest control's accumulator sum is only "
+                             f"{out['control_acc_rel_diff']:.3g} off: the limit separates "
+                             f"nothing")
+    return rec
+
+
+def phase_train_adam_sr(smi_line):
+    """The flagship with adam and bfloat16_sr state (K3 on the full-width
+    Wy, once per step), on the train phase's data: the adam + SR table size
+    that the JAX package sends to its compact kernel. Adam takes a learning
+    rate of 0.001: at the flagship's 0.05 it does not learn (PERF.md)."""
+    train, test = synth_split()
+    cfg = flagship_cfg(adapt="adam", learning_rate=0.001, opt_state_dtype="bfloat16_sr")
+    return _train("train_adam_sr", cfg, train, test, smi_line, {"K3": 1})
+
+
+def phase_train_onehot(smi_line):
+    """Path B: param_samples/rsc15_bpr-max.py on RSC15-shaped sessions (K4 on
+    the 300-wide Wx0, K1 on the 128-wide Wy, each once per step)."""
+    train, test = synth_split(seed=1, n_items=RSC15_ITEMS, mean_len=RSC15_MEAN_SESSION_LEN)
+    rec = _train("train_onehot", rsc15_cfg(), train, test, smi_line, {"K4": 1, "K1": 1})
+    n_pad = rec["tables"]["Wy"][0]
+    if rec["n_items"] != RSC15_ITEMS or rec["tables"]["Wx0"] != [n_pad, 300] or \
+            rec["tables"]["Wy"] != [n_pad, 128]:
+        raise AssertionError(f"unexpected RSC15 tables {rec['tables']} for "
+                             f"{rec['n_items']} items")
+    return rec
 
 
 def phase_learn():
@@ -380,6 +641,36 @@ def phase_learn():
     emit({"phase": "learn", "recall": rec, "mrr": mrr})
     if rec[0] < 0.9:
         raise AssertionError(f"markov recall@1 {rec[0]} < 0.9")
+
+
+def learn_sr_cfg():
+    """The JAX package's SR end-to-end test config (tests/test_sr_state.py):
+    adam, an embedding of 12, bfloat16_sr state, on the markov chain."""
+    from gru4rec_tpu_torch import GRU4RecConfig
+
+    return GRU4RecConfig(loss="cross-entropy", final_act="softmax", layers=[64],
+                         batch_size=32, n_sample=64, sample_alpha=0.5,
+                         learning_rate=0.08, adapt="adam", embedding=12, n_epochs=3,
+                         chunk_size=32, item_pad_multiple=16,
+                         opt_state_dtype="bfloat16_sr", dropout_p_hidden=0.0,
+                         dropout_p_embed=0.0, seed=11)
+
+
+def phase_learn_sr(smi_line):
+    """adam + SR state (K3 on E and Wy, twice per step): recall@1 >= 0.9."""
+    rec = _train("learn_sr", learn_sr_cfg(), markov(800), markov(100, seed=5), smi_line,
+                 {"K3": 2})
+    if rec["tables"]["E"][1] != 12 or rec["opt_state"]["E"]["acc2"] != "bfloat16":
+        raise AssertionError(f"unexpected E table / state {rec['tables']} {rec['opt_state']}")
+    if rec["recall"]["@1"] < 0.9:
+        raise AssertionError(f"adam + bfloat16_sr markov recall@1 {rec['recall']} < 0.9")
+    return rec
+
+
+# the kernels line: mode -> (line of the TPU kernel in
+# gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
+KERNEL_TABLE = {"K1": (419, "train"), "K2": (484, "train_sr"),
+                "K3": (808, "train_adam_sr"), "K4": (248, "train_onehot")}
 
 
 def main() -> int:
@@ -397,23 +688,30 @@ def main() -> int:
 
     smi_line = phase_device()
     phase_build()
-    timing = phase_kernel()
+    phase_kernel()
+    timing = phase_kernel_timing()
     phase_reference()
-    launches = phase_train(smi_line)
+    paths = {"train": phase_train(smi_line)}
+    control = phase_train_sr_control(smi_line)
+    paths["train_sr"] = phase_train_sr(smi_line, paths["train"], control)
+    paths["train_adam_sr"] = phase_train_adam_sr(smi_line)
+    paths["train_onehot"] = phase_train_onehot(smi_line)
     phase_learn()
+    paths["learn_sr"] = phase_learn_sr(smi_line)
     emit({"kernels": [{
-        "name": "sparse_update",
+        "name": f"sparse_update[{mode}]",
         "route": "cuda",
         "source": "gru4rec_tpu_torch/csrc/sparse_update.cu",
-        "replaces": "gru4rec_tpu/ops/kernels/sparse_update.py:419",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
+        "replaces": f"gru4rec_tpu/ops/kernels/sparse_update.py:{line}",
+        "launches": paths[phase]["launches"][mode],
+        "max_abs_err": timing[mode]["max_abs_err"],
+        "ms": timing[mode]["ms"],
+        "plain_ms": timing[mode]["plain_ms"],
+        "bound_ms": timing[mode]["bound_ms"],
         "bound_by": "bytes",
+        # no single PyTorch call computes this function (PERF.md)
         "library_ms": None,
-    }]})
+    } for mode, (line, phase) in KERNEL_TABLE.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,6 +7,9 @@ string coercion; ``fit(data)`` trains on one device through
 ``params``. Serving (``predict_next_batch`` / ``predict_topk``) and
 checkpoints are not ported yet; ``fit``'s resume, retrain, checkpoint,
 profile, mesh and in-fit validation options raise ``NotImplementedError``.
+All three input modes train (constrained, embedding, one-hot), under every
+``opt_state_dtype``, including ``"bfloat16_sr"`` (stochastically rounded
+bfloat16 item-table state, ``ops/sr.py``).
 
 The model runs on the card (``device=None`` means ``"cuda"``) unless the
 caller asks for the CPU with ``device="cpu"``; asking for CUDA where there

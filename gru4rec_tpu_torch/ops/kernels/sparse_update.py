@@ -1,12 +1,23 @@
 """Fused row-sparse optimizer update: the hand-written CUDA kernel's wrapper.
 
-Replaces the JAX package's Pallas TPU kernel ``_fused_update_v3``
-(``gru4rec_tpu/ops/kernels/sparse_update.py``, non-SR, non-compact mode)
-with ``csrc/sparse_update.cu``: one pass over the touched rows of a float32
-table that sums duplicate-index gradients and applies adagrad / rmsprop /
-adadelta / adam with momentum and L2, updating the table, its state and its
-velocity in place. The state layouts are the JAX package's
-(``train/optimizers.py`` ``init_state``).
+Replaces the JAX package's Pallas TPU kernels in
+``gru4rec_tpu/ops/kernels/sparse_update.py`` with ``csrc/sparse_update.cu``:
+one pass over the touched rows of a float32 table that sums duplicate-index
+gradients and applies adagrad / rmsprop / adadelta / adam with momentum and
+L2, updating the table, its state and its velocity in place. The state
+layouts are the JAX package's (``train/optimizers.py`` ``init_state``).
+One kernel serves the four TPU kernels, by mode:
+
+* K1 ``_fused_update_v3`` (non-SR): widths that are multiples of 128;
+* K2 ``_fused_update_v3`` with ``sr_seed``: stochastically rounded bfloat16
+  state (``opt_state_dtype="bfloat16_sr"``), adagrad;
+* K3 ``fused_update_v4``, the same kernel fed compact deduped gradients,
+  which JAX uses only for adam with SR state: here SR adam. The port's
+  kernel always sums duplicates from the sorted raw indices, so "compact"
+  is what every mode does;
+* K4 ``_fused_update``, the v2 grid (non-SR, any width): other widths.
+
+``launches_by_mode`` counts the launches of each mode.
 
 The kernel is memory-bound (see the source's header). The wrapper issues
 no host synchronisation: it stable-sorts the indices with ``torch.sort`` and
@@ -27,13 +38,23 @@ EPSILON = 1e-6
 _ADAPT_CODES = {"adagrad": 0, "rmsprop": 1, "adadelta": 2, "adam": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the kernel since the last reset (one per call on the card).
-launches = 0
+MODES = ("K1", "K2", "K3", "K4")
+
+# Launches of the kernel by mode since the last reset (one per call on the
+# card).
+launches_by_mode = dict.fromkeys(MODES, 0)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for m in MODES:
+        launches_by_mode[m] = 0
+
+
+def mode_of(adapt: str, d: int, sr: bool) -> str:
+    """The TPU kernel that a launch of this kind stands for (module doc)."""
+    if sr:
+        return "K3" if adapt == "adam" else "K2"
+    return "K1" if d % 128 == 0 else "K4"
 
 
 def log_decay(v: float) -> float:
@@ -48,17 +69,19 @@ def _function():
 
     fn = load("sparse_update").gru4rec_sparse_update
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, i, p, p, p, i, p, i, i, p, i, p,
+        p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+        fn.argtypes = [i, i, i, i, u, u, p, p, p, i, p, i, i, p, i, p,
                        f, f, f, f, f, f, f, f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(opt, table, idx, g, st):
+def _check(opt, table, idx, g, st, sr=False):
     adapt = opt.adapt
     if adapt not in _ADAPT_CODES:
         raise ValueError(f"no fused kernel for adapt={adapt!r}")
+    if sr and adapt not in ("adagrad", "adam"):
+        raise ValueError(f"stochastic-rounding state is adagrad/adam only, not {adapt!r}")
     key = "acc2" if adapt in ("adam", "adadelta") else "acc"
     if key not in st:
         raise ValueError(f"the kernel takes the merged {key!r} state layout; "
@@ -83,6 +106,8 @@ def _check(opt, table, idx, g, st):
     if state.shape != (n, ds) or state.dtype not in _DTYPE_CODES:
         raise ValueError(f"{adapt} state must be ({n}, {ds}) float32/bfloat16, "
                          f"got {state.dtype} {tuple(state.shape)}")
+    if sr and state.dtype != torch.bfloat16:
+        raise ValueError(f"stochastic rounding stores bfloat16 state, got {state.dtype}")
     if (vel is None) != (opt.momentum <= 0):
         raise ValueError("velocity state must be present exactly when momentum > 0")
     if vel is not None and (vel.shape != (n, d) or vel.dtype not in _DTYPE_CODES):
@@ -91,26 +116,34 @@ def _check(opt, table, idx, g, st):
     return state, vel
 
 
-def fused_update(opt, table, idx, g, st):
+def fused_update(opt, table, idx, g, st, sr_seed=None):
     """Row-sparse update of ``table`` (n, d) at the K (possibly duplicated,
     sentinel-masked) indices ``idx`` with gradient rows ``g`` (K, d), under
     the hyperparameters of ``opt`` (a ``train.optimizers.Optimizer``).
     Updates ``table`` and the state dict ``st`` in place and returns them.
-    Indices >= n (the int32-max sentinel of masked lanes) are dropped."""
-    global launches
+    Indices >= n (the int32-max sentinel of masked lanes) are dropped.
+    ``sr_seed`` = (seed, global row offset) keys the dither of
+    stochastically rounded state (``Optimizer.apply_sparse``); the two ints
+    go to the kernel by value."""
     if table.device.type == "cpu":
-        return opt.apply_sparse_plain(table, idx, g, st)
+        return opt.apply_sparse_plain(table, idx, g, st, sr_seed=sr_seed)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
-    state, vel = _check(opt, table, idx, g, st)
+    sr_seed = opt.sr_seed_for(st, sr_seed)
+    sr = sr_seed is not None
+    state, vel = _check(opt, table, idx, g, st, sr)
     n, d = table.shape
     K = idx.shape[0]
     if K == 0:
         return table, st
+    seed, row_offset = sr_seed if sr else (0, 0)
     sidx, order = torch.sort(idx.to(torch.int32), stable=True)
     err = _function()(
         _ADAPT_CODES[opt.adapt], _DTYPE_CODES[state.dtype],
         -1 if vel is None else _DTYPE_CODES[vel.dtype],
+        # SR mode: 1 rounds the slow slot, 2 also adam's first moment
+        (2 if opt.sr_first_moment else 1) if sr else 0,
+        seed & 0xFFFFFFFF, row_offset & 0xFFFFFFFF,
         g.data_ptr(), sidx.data_ptr(), order.data_ptr(), K,
         table.data_ptr(), n, d, state.data_ptr(), state.shape[1],
         None if vel is None else vel.data_ptr(),
@@ -120,5 +153,5 @@ def fused_update(opt, table, idx, g, st):
     )
     if err != 0:
         raise RuntimeError(f"sparse_update kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches_by_mode[mode_of(opt.adapt, d, sr)] += 1
     return table, st

@@ -13,6 +13,11 @@ CUDA tensor goes through the hand-written kernel
 (``ops/kernels/sparse_update.py``); the torch-op path here
 (:meth:`Optimizer.apply_sparse_plain`) is that kernel's plain version and
 the CPU path.
+
+``opt_state_dtype="bfloat16_sr"`` stores adagrad's accumulator and adam's
+merged state of the item tables in bfloat16 with stochastic rounding
+(``ops/sr.py``), as the JAX package does: the unrounded float32 state
+drives the step's update, the rounded value is stored.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Dict
 import torch
 
 from gru4rec_tpu_torch.config import GRU4RecConfig
+from gru4rec_tpu_torch.ops import sr
 from gru4rec_tpu_torch.ops.kernels import sparse_update
 from gru4rec_tpu_torch.ops.kernels.sparse_update import EPSILON
 from gru4rec_tpu_torch.ops.kernels.sparse_update import log_decay as _ln
@@ -75,15 +81,19 @@ class Optimizer:
         self.momentum = cfg.momentum
         self.lmbd = cfg.lmbd
         self.grad_cap = cfg.grad_cap
-        if cfg.opt_state_dtype == "bfloat16_sr":
-            raise NotImplementedError(
-                "opt_state_dtype='bfloat16_sr' (stochastic-rounding state) "
-                "is not ported yet; use 'bfloat16' or 'float32'")
-        self.sparse_state_dtype = (torch.bfloat16 if cfg.opt_state_dtype == "bfloat16"
-                                   else torch.float32)
+        # "bfloat16_sr": bfloat16 also where the decay gate would force
+        # float32 (adagrad's acc, adam's merged state), kept unbiased by
+        # stochastic rounding; only the slots whose updates implement SR
+        # narrow that way (init_state)
+        self.state_sr = cfg.opt_state_dtype == "bfloat16_sr"
+        self.sparse_state_dtype = (torch.bfloat16 if cfg.opt_state_dtype
+                                   in ("bfloat16", "bfloat16_sr") else torch.float32)
         ap = cfg.adapt_params
         self.v1 = ap[0] if ap else 0.9
         self.v2 = ap[1] if len(ap) > 1 else 0.999
+        # under SR, adam's first moment is rounded stochastically too when
+        # its decay is slow enough to freeze under round-to-nearest
+        self.sr_first_moment = self.adapt == "adam" and self.v1 > 0.99
 
     # ------------------------------------------------------------------ #
     def _ema_dtype(self, decay, param):
@@ -103,7 +113,10 @@ class Optimizer:
         (``opt_state_dtype``); adagrad's monotone accumulator stays in the
         parameter dtype. Two-slot optimizers store sparse 2-D state merged:
         adadelta (n, 2d) = [acc | upd]; adam (n, 2d + 128) = [acc | meang |
-        count block], whose 128 lanes all hold the per-row step count."""
+        count block], whose 128 lanes all hold the per-row step count.
+        Under ``bfloat16_sr`` a sparse 2-D adagrad ``acc`` and adam ``acc2``
+        are bfloat16; adam's count block then holds the count as base-256
+        limbs in lanes 0..2 and zeros in lanes 3..127."""
         def zeros(dtype):
             return torch.zeros(param.shape, dtype=dtype, device=param.device)
 
@@ -112,17 +125,19 @@ class Optimizer:
 
         two_slot = self.adapt in ("adam", "adadelta")
         merged = sparse and two_slot and param.dim() == 2
+        narrow_sr = self.state_sr and sparse and param.dim() == 2
         st: Dict = {}
         if self.adapt == "adagrad":
-            st["acc"] = zeros(param.dtype)
+            st["acc"] = zeros(torch.bfloat16 if narrow_sr else param.dtype)
         elif self.adapt == "rmsprop":
             st["acc"] = zeros(ema(self.v1))
         elif merged and self.adapt == "adadelta":
             st["acc2"] = torch.zeros((param.shape[0], 2 * param.shape[1]),
                                      dtype=ema(self.v1), device=param.device)
-        elif merged:  # adam: [acc | meang | count-column block], always f32
+        elif merged:  # adam: [acc | meang | count-column block]
             st["acc2"] = torch.zeros((param.shape[0], 2 * param.shape[1] + 128),
-                                     dtype=torch.float32, device=param.device)
+                                     dtype=torch.bfloat16 if narrow_sr else torch.float32,
+                                     device=param.device)
         elif self.adapt == "adadelta":
             st["acc"] = zeros(ema(self.v1))
             st["upd"] = zeros(ema(self.v1))
@@ -166,13 +181,31 @@ class Optimizer:
             return mhat / (torch.sqrt(vhat) + EPSILON)
         return g  # plain SGD
 
-    def _adapt_sparse(self, uidx, g, st):
+    def sr_active(self, st) -> bool:
+        """Whether this sparse state is stored with stochastic rounding."""
+        if not self.state_sr:
+            return False
+        if self.adapt == "adagrad":
+            return st["acc"].dtype == torch.bfloat16
+        return (self.adapt == "adam" and "acc2" in st
+                and st["acc2"].dtype == torch.bfloat16)
+
+    def _adapt_sparse(self, uidx, g, st, sr_seed=None):
         """Row-sparse adaptation; ``uidx`` is deduped with a sentinel tail.
-        Writes the state rows in place and returns the scaled gradient."""
+        Writes the state rows in place and returns the scaled gradient.
+        ``sr_seed`` = (seed, global row offset) keys the dither of the
+        stochastically rounded slots (see :meth:`apply_sparse`)."""
         a = self.adapt
+        sr_on = sr_seed is not None
+
+        def sr_store(rows, col_offset=0):
+            bits = sr.sr_bits16(sr_seed[0], uidx.to(torch.int64) + sr_seed[1],
+                                rows.shape[1], col_offset=col_offset)
+            return sr.sr_round_bf16(rows, bits)
+
         if a == "adagrad":
             rows = _take_rows(st["acc"], uidx) + g**2
-            _put_rows(st["acc"], uidx, rows)
+            _put_rows(st["acc"], uidx, sr_store(rows) if sr_on else rows)
             return g / torch.sqrt(rows + EPSILON)
         if a == "rmsprop":
             rows = self.v1 * _take_rows(st["acc"], uidx) + (1.0 - self.v1) * g**2
@@ -201,7 +234,11 @@ class Optimizer:
                 W = st["acc2"].shape[1]
                 am = _take_rows(st["acc2"], uidx)
                 acc_old, meang_old = am[:, :d], am[:, d:2 * d]
-                cnt = am[:, 2 * d] + 1.0
+                if sr_on:  # the count as base-256 limbs in lanes 0..2
+                    cnt = sr.limbs_decode(am[:, 2 * d], am[:, 2 * d + 1],
+                                          am[:, 2 * d + 2]) + 1.0
+                else:
+                    cnt = am[:, 2 * d] + 1.0
             else:
                 acc_old = _take_rows(st["acc"], uidx)
                 meang_old = _take_rows(st["meang"], uidx)
@@ -213,7 +250,20 @@ class Optimizer:
             if g.dim() > 1:
                 corr1 = corr1[:, None]
                 corr2 = corr2[:, None]
-            if "acc2" in st:
+            if sr_on:
+                # second moment SR; first moment SR (on its own buffer
+                # columns) only for a slow v1 that round-to-nearest would
+                # freeze; limbs in lanes 0..2, zeros in the rest
+                lo, mid, hi = sr.limbs_encode(cnt[:, None])
+                cnt_block = torch.cat(
+                    [lo, mid, hi, torch.zeros((cnt.shape[0], W - 2 * d - 3),
+                                              device=cnt.device)], dim=1)
+                meang_stored = (sr_store(meang_rows, col_offset=d) if self.sr_first_moment
+                                else meang_rows.to(torch.bfloat16))
+                _put_rows(st["acc2"], uidx,
+                          torch.cat([sr_store(acc_rows), meang_stored,
+                                     cnt_block.to(torch.bfloat16)], dim=1))
+            elif "acc2" in st:
                 # the count fills ALL lanes of its block
                 cnt_block = cnt[:, None].expand(cnt.shape[0], W - 2 * d)
                 _put_rows(st["acc2"], uidx,
@@ -237,20 +287,38 @@ class Optimizer:
             p.copy_(p * (1.0 - self.lr * self.lmbd) - self.lr * g)
         return p, st
 
-    def apply_sparse(self, table, idx, g, st):
+    def sr_seed_for(self, st, sr_seed):
+        """``sr_seed`` = (seed, row_offset) as ints when ``st`` is stored
+        with stochastic rounding, else None; SR state without a seed raises,
+        as in the JAX package."""
+        if not self.sr_active(st):
+            return None
+        if sr_seed is None:
+            raise ValueError("opt_state_dtype='bfloat16_sr' requires a per-step "
+                             "seed (sr_seed) for the stochastic-rounding dither")
+        seed, offset = sr_seed
+        return int(seed), int(offset)
+
+    def apply_sparse(self, table, idx, g, st, sr_seed=None):
         """Update ``table`` rows at (possibly duplicated / sentinel-masked)
         ``idx`` in place. With an adaptive optimizer this is the fused
         row-sparse kernel on the card and its plain version on the CPU;
-        plain SGD keeps the torch-op path (no state to fuse)."""
+        plain SGD keeps the torch-op path (no state to fuse).
+
+        ``sr_seed`` = (seed, global row offset), Python ints, keys the
+        stochastic-rounding dither of ``bfloat16_sr`` state: the dither
+        hashes (seed, row_offset + row, column), so kernel, plain version
+        and the JAX package store bit-identical state for the same seed."""
         if self.adapt is None:
             return self.apply_sparse_plain(table, idx, g, st)
-        return sparse_update.fused_update(self, table, idx, g, st)
+        return sparse_update.fused_update(self, table, idx, g, st, sr_seed=sr_seed)
 
-    def apply_sparse_plain(self, table, idx, g, st):
+    def apply_sparse_plain(self, table, idx, g, st, sr_seed=None):
         """The torch-op row-sparse update: dedup, adapt, momentum, L2 — the
         fused kernel's plain version (gru4rec_tpu's XLA path)."""
+        sr_seed = self.sr_seed_for(st, sr_seed)
         uidx, g = dedup_rows(idx, g)
-        g = self._adapt_sparse(uidx, g, st)
+        g = self._adapt_sparse(uidx, g, st, sr_seed)
         if self.lmbd > 0:
             delta = self.lr * (g + self.lmbd * _take_rows(table, uidx))
         else:

@@ -11,6 +11,11 @@ gradients, gru4rec.py:384), so no dense (n_items, d) gradient is ever formed;
 they are applied with the fused row-sparse update
 (``ops/kernels/sparse_update.py``). Parameters and optimizer state are
 updated in place.
+
+Under ``opt_state_dtype="bfloat16_sr"`` each sparse table's update gets its
+own stochastic-rounding seed per step, ``ops.sr.step_seed(cfg.seed, step,
+SR_TABLE_SALT[table])``: a host computation, so the step issues no device
+synchronisation for it.
 """
 
 from __future__ import annotations
@@ -24,10 +29,15 @@ import torch
 from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.models import gru
 from gru4rec_tpu_torch.ops.losses import get_loss
+from gru4rec_tpu_torch.ops.sr import step_seed
 from gru4rec_tpu_torch.ops.sampling import draw_negatives
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
 
 DENSE_GROUPS = ("Wx", "Wh", "Wrz", "Bh")
+# Per-table salt of the stochastic-rounding seed, keyed on state names (the
+# JAX package's values): without it the tables updated in one step would
+# share one dither stream. 0x5352 = ASCII "SR".
+SR_TABLE_SALT = {"Wx0": 0x53520001, "E": 0x53520002, "Wy": 0x53520003}
 
 
 @dataclass
@@ -72,13 +82,12 @@ def split_params(params: Dict, mode: str):
         "Wrz": list(params["Wrz"]),
         "Bh": list(params["Bh"]),
     }
-    if mode == "onehot":
-        sparse_names = ("Wx0", "Wy")
-    elif mode == "embedding":
-        sparse_names = ("E", "Wy")
-    else:
-        sparse_names = ("Wy",)
-    return dense, sparse_names
+    return dense, sparse_table_names(mode)
+
+
+def sparse_table_names(mode: str):
+    """State names of the row-sparsely updated item tables of ``mode``."""
+    return {"onehot": ("Wx0", "Wy"), "embedding": ("E", "Wy")}.get(mode, ("Wy",))
 
 
 def merge_dense(params: Dict, dense: Dict, mode: str) -> Dict:
@@ -101,11 +110,13 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
     """Build the per-chunk training function.
 
     Signature: ``chunk_fn(state, in_c, out_c, valid_c, reset_c, samp1, logp0,
-    neg=None) -> (loss_weighted_sum, event_count)``. The ``*_c`` arguments
-    are (chunk, B) numpy schedule slices (host arrays: the step gating and
-    the event count need no device round trip); ``samp1`` is the sampler
-    table on the device; ``neg`` (chunk, n_sample), when given, replaces the
-    chunk's negative draw (tests inject the JAX package's draws). ``state``
+    neg=None, sr_seeds=None) -> (loss_weighted_sum, event_count)``. The
+    ``*_c`` arguments are (chunk, B) numpy schedule slices (host arrays: the
+    step gating and the event count need no device round trip); ``samp1`` is
+    the sampler table on the device; ``neg`` (chunk, n_sample), when given,
+    replaces the chunk's negative draw, and ``sr_seeds`` ({state name:
+    (chunk,) int32}), when given, the stochastic-rounding seeds of each
+    sparse table's update (tests inject the JAX package's). ``state``
     is updated in place. Loss bookkeeping follows the reference: the
     per-step cost is divided by the *static* batch size (gru4rec.py:577) and
     the returned loss sum weights steps by live-lane count (a device
@@ -117,8 +128,9 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
     B = cfg.batch_size
     n_sample = cfg.n_sample
     use_logq = bool(cfg.logq)
+    sparse_names = sparse_table_names(mode)
 
-    def step_fn(state, in_d, out_d, valid_d, reset_d, neg_t, Mf, logp0):
+    def step_fn(state, in_d, out_d, valid_d, reset_d, neg_t, Mf, logp0, seeds):
         params, opt_state = state.params, state.opt_state
         dev = params["Wy"].device
         row_valid = valid_d
@@ -183,13 +195,14 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
             for name, g in zip(names, g_sparse):
                 sname = "Wy" if name == "WyS" else name
                 opt.apply_sparse(_sparse_table(params, sname), scatter_idx[name],
-                                 g, opt_state["sparse"][sname])
+                                 g, opt_state["sparse"][sname],
+                                 sr_seed=None if seeds is None else (seeds[sname], 0))
             state.H = [torch.where(valid_d[:, None], hn.detach(), ho)
                        for hn, ho in zip(H_new, H)]
         return cost.detach() * Mf
 
     def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1,
-                 logp0, neg=None):
+                 logp0, neg=None, sr_seeds=None):
         chunk = in_c.shape[0]
         dev = state.params["Wy"].device
         if n_sample > 0 and neg is None:
@@ -206,8 +219,15 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
             # gate): no update of any parameter or optimizer state
             if counts[t] > 0:
                 neg_t = neg[t].to(device=dev, dtype=torch.int32) if n_sample > 0 else None
+                seeds = None
+                if opt.state_sr:
+                    seeds = ({k: int(v[t]) for k, v in sr_seeds.items()}
+                             if sr_seeds is not None else
+                             {k: step_seed(cfg.seed, state.step, SR_TABLE_SALT[k])
+                              for k in sparse_names})
                 loss_sum = loss_sum + step_fn(state, in_d[t], out_d[t], valid_d[t],
-                                              reset_d[t], neg_t, float(counts[t]), logp0)
+                                              reset_d[t], neg_t, float(counts[t]), logp0,
+                                              seeds)
             state.step += 1
         return loss_sum, int(counts.sum())
 
