@@ -16,8 +16,10 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    and 300; the stochastic-rounding mode (``bfloat16_sr``, adagrad and adam
    x momentum x L2, a slow-v1 adam, widths 300, 128 and 12) with the stored bf16
    state bit-equal on rows touched once and within one bf16 ulp elsewhere;
-   then times each mode at its main path's shape with CUDA events
-   (``kernel_timing``, one line per mode);
+   then times each mode at its main path's shape over 64 back-to-back
+   launches on distinct index sets (``kernel_timing``, one line per mode):
+   the kernel's device time per launch (``torch.profiler``), the wrapper's
+   and the plain version's time per call (CUDA events);
 4. reference — the training slice on the card against the same slice on
    the CPU at a small size, step by step;
 5. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
@@ -42,7 +44,15 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    which must reach recall@1 >= 0.9;
 11. learn_sr — the same chain with adam, an embedding of 12 and
    ``bfloat16_sr`` state (K3 on ``E`` and ``Wy``), recall@1 >= 0.9;
-12. kernels — one JSON line per the port's kernel table.
+12. proto   — the adagrad prototypes P1 (merged ``[t | a]`` layout) and P2
+   (persistent loop over the real rows, ``cp.async`` ring) of
+   ``ops/kernels/proto_adagrad.py``: each against its plain version at a
+   small shape and at every published shape of its script with the last row
+   touched, P2's wrapper under ``torch.cuda.set_sync_debug_mode("error")``,
+   then the measurement paths of ``scripts/proto_merged_kernel_torch.py``
+   and ``scripts/proto_v3_kernel_torch.py`` (one line per shape and
+   variant) and each kernel's timing at the RetailRocket shape;
+13. kernels — one JSON line per the port's kernel table (K1-K4, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
 then exits non-zero. The last line is
@@ -55,7 +65,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -155,33 +164,13 @@ def rsc15_cfg(**kw):
     return GRU4RecConfig(**args)
 
 
-def median_ms(fn, reps, before=None):
-    """Median over ``reps`` calls of ``fn``, each between two CUDA events;
-    ``before`` runs outside the timed region (e.g. an L2 flush)."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        if before is not None:
-            before()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 # --------------------------------------------------------------------- #
 def phase_device():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    line = smi.splitlines()[0]
+    from gru4rec_tpu_torch.ops.kernels.proto_measure import nvidia_smi_line
+
+    line = nvidia_smi_line()
     print(line, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": line, "count": torch.cuda.device_count(),
@@ -200,22 +189,26 @@ def phase_build():
           "seconds": time.time() - t0})
 
 
-def _index_set(rng, n_items, K, B):
-    """K = 2B + n_sample indices shaped like one constrained-mode step: 2B
-    lane indices (a few masked to the sentinel) then pop^0.4 alias draws."""
+def _index_sets(rng, n_items, K, B, n):
+    """``n`` sets of K = 2B + n_sample indices shaped like one
+    constrained-mode step each: 2B lane indices (a few masked to the
+    sentinel) then pop^0.4 alias draws."""
     from gru4rec_tpu_torch.ops.sampling import build_alias_table
 
     ranks = np.arange(1, n_items + 1, dtype=np.float64)
     pop = np.maximum((1e6 / ranks**0.8).astype(np.int64), 1)
     packed = build_alias_table(pop, 0.4)
-    n_neg = K - 2 * B
-    slot = rng.randint(0, n_items, n_neg)
-    prob = packed[slot, 0].view(np.float32)
-    neg = np.where(rng.rand(n_neg) < prob, slot, packed[slot, 1])
     p = pop / pop.sum()
-    lanes = rng.choice(n_items, size=2 * B, p=p)
-    lanes[rng.choice(2 * B, size=B // 8, replace=False)] = SENTINEL
-    return np.concatenate([lanes, neg]).astype(np.int32)
+    n_neg = K - 2 * B
+    sets = []
+    for _ in range(n):
+        slot = rng.randint(0, n_items, n_neg)
+        prob = packed[slot, 0].view(np.float32)
+        neg = np.where(rng.rand(n_neg) < prob, slot, packed[slot, 1])
+        lanes = rng.choice(n_items, size=2 * B, p=p)
+        lanes[rng.choice(2 * B, size=B // 8, replace=False)] = SENTINEL
+        sets.append(np.concatenate([lanes, neg]).astype(np.int32))
+    return np.stack(sets)
 
 
 def _lane_set(rng, n_items, B):
@@ -342,7 +335,7 @@ def phase_kernel():
     n_items, B, n_sample = N_ITEMS, 80, 2048
     n_rows, d = pad_items(n_items, 128), pad_cols(224 + 1)
     K = 2 * B + n_sample
-    idx = _index_set(rng, n_items, K, B)
+    idx = _index_sets(rng, n_items, K, B, 1)[0]
     adapts = ("adagrad", "rmsprop", "adadelta", "adam")
     cases = []  # (adapt, momentum, lmbd, opt_state_dtype, width, adapt_params)
     for adapt in adapts:
@@ -395,52 +388,59 @@ def _row_bytes(opt, st, d, sr):
 
 def phase_kernel_timing():
     """Each mode at its main path's shape and settings: one kernel-vs-plain
-    check, then CUDA-event medians of the kernel's and the plain version's
-    wrapper calls with the 50 MB L2 flushed before each, and the byte
-    bound: the K indices and gradient rows read once, plus ``_row_bytes``
-    for each distinct row. Returns {mode: timing}."""
+    check, then ``STEPS`` back-to-back calls on as many distinct index sets
+    (``ops/kernels/proto_measure.py``): the kernel's own device time per
+    launch under ``torch.profiler`` (``ms``), the CUDA-event time per call of
+    the wrapper, sort plus kernel (``step_ms``), and of the plain version
+    (``plain_ms``), medians over runs; and the byte bound, averaged over the
+    index sets: the K indices and gradient rows read once, plus
+    ``_row_bytes`` for each distinct row. Returns {mode: timing}."""
     import torch
 
     from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
-    from gru4rec_tpu_torch.ops.kernels import sparse_update
+    from gru4rec_tpu_torch.ops.kernels import proto_measure, sparse_update
 
     rng = np.random.RandomState(0)
-    B = 80
+    B, steps = 80, proto_measure.STEPS
     n_rows, d = pad_items(N_ITEMS, 128), pad_cols(224 + 1)
     K = 2 * B + 2048
-    idx = _index_set(rng, N_ITEMS, K, B)
+    flagship = _index_sets(rng, N_ITEMS, K, B, steps)
     rsc_rows = pad_items(RSC15_ITEMS, 128)
-    rows = {  # mode: (main path, adapt, momentum, state dtype, n_rows, d, indices)
-        "K1": ("train: flagship Wy", "adagrad", 0.4, "bfloat16", n_rows, d, idx),
-        "K2": ("train_sr: flagship Wy", "adagrad", 0.4, "bfloat16_sr", n_rows, d, idx),
-        "K3": ("train_adam_sr: flagship Wy", "adam", 0.4, "bfloat16_sr", n_rows, d, idx),
+    onehot = np.stack([_lane_set(rng, RSC15_ITEMS, 32) for _ in range(steps)])
+    rows = {  # mode: (main path, adapt, momentum, state dtype, n_rows, d, index sets)
+        "K1": ("train: flagship Wy", "adagrad", 0.4, "bfloat16", n_rows, d, flagship),
+        "K2": ("train_sr: flagship Wy", "adagrad", 0.4, "bfloat16_sr", n_rows, d, flagship),
+        "K3": ("train_adam_sr: flagship Wy", "adam", 0.4, "bfloat16_sr", n_rows, d, flagship),
         "K4": ("train_onehot: RSC15 Wx0", "adagrad", 0.3, "bfloat16", rsc_rows, 3 * 100,
-               _lane_set(rng, RSC15_ITEMS, 32)),
+               onehot),
     }
-    flush = torch.empty(64 * 2**20, dtype=torch.int8, device=DEVICE)
-    cold = lambda: flush.zero_()  # evict the 50 MB L2 between timed calls
     out = {}
-    for mode, (path, adapt, momentum, sd, rows_n, width, ix) in rows.items():
+    for mode, (path, adapt, momentum, sd, rows_n, width, sets) in rows.items():
         opt, table, idx_t, g, st = _make_case(adapt, momentum, 0.0, sd, rows_n, width,
-                                              ix, seed=99)
+                                              sets[0], seed=99)
         err, share, got_mode = _kernel_vs_plain(opt, table, idx_t, g, st)
         if got_mode != mode:
             raise AssertionError(f"{mode} case launched as {got_mode}")
         sr_seed = SR_SEED if opt.sr_active(st) else None
-        kern = lambda: sparse_update.fused_update(opt, table, idx_t, g, st, sr_seed=sr_seed)
-        plain = lambda: opt.apply_sparse_plain(table, idx_t, g, st, sr_seed=sr_seed)
-        for f in (kern, plain):
-            f()
-        torch.cuda.synchronize()
-        ms = median_ms(kern, 200, cold)
-        plain_ms = median_ms(plain, 50, cold)
-        Kn = len(ix)
-        U = int(torch.unique(idx_t[idx_t < rows_n]).numel())
+        Kn = sets.shape[1]
+        idxs = torch.from_numpy(sets).to(DEVICE)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(7)
+        gs = torch.randn((steps, Kn, width), generator=gen, device=DEVICE) * 0.1
+        kern = lambda s: sparse_update.fused_update(opt, table, idxs[s], gs[s], st,
+                                                    sr_seed=sr_seed)
+        plain = lambda s: opt.apply_sparse_plain(table, idxs[s], gs[s], st, sr_seed=sr_seed)
+        times = proto_measure.device_times(kern)
+        ms = proto_measure.kernel_us(times, ("sparse_update_kernel",), steps) / 1e3
+        step_ms = proto_measure.steps_us(kern) / 1e3
+        plain_ms = proto_measure.steps_us(plain, reps=3) / 1e3
+        U = float(np.mean(proto_measure.distinct_rows(idxs, rows_n)))
         bytes_moved = (Kn * 4 + Kn * width * 4   # indices, gradient rows
                        + U * _row_bytes(opt, st, width, sr_seed is not None))
         out[mode] = {"main_path": path, "adapt": adapt, "momentum": momentum,
                      "opt_state_dtype": sd, "n_rows": rows_n, "d": width, "K": Kn,
-                     "distinct_rows": U, "ms": ms, "plain_ms": plain_ms,
+                     "index_sets": steps, "distinct_rows": U, "ms": ms,
+                     "step_ms": step_ms, "plain_ms": plain_ms,
                      "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
                      "bytes": bytes_moved, "max_abs_err": err,
                      "sr_bit_equal_share": share}
@@ -667,10 +667,136 @@ def phase_learn_sr(smi_line):
     return rec
 
 
+def _proto_vs_plain(kernel, idx, g, table, acc):
+    """One call of P1 or P2 (``kernel``) and one of its plain version from
+    the same inputs: table and accumulator within the scripts' rtol 1e-6 /
+    atol 1e-7 (only duplicate sums may be added in another order), rows no
+    index touches bit-identical. Returns the max abs error."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import proto_adagrad, proto_measure
+
+    n, d = table.shape
+    before = proto_adagrad.launches_by_mode[kernel]
+    if kernel == "P1":
+        m_k = torch.cat([table, acc], dim=1)
+        m_p = m_k.clone()
+        proto_adagrad.merged_adagrad(m_k, idx, g, proto_measure.LR)
+        proto_adagrad.merged_adagrad_plain(m_p, idx, g, proto_measure.LR)
+        pairs = [(m_k[:, :d], m_p[:, :d], table), (m_k[:, d:], m_p[:, d:], acc)]
+    else:
+        t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+        proto_adagrad.v3_adagrad(t_k, a_k, idx, g, proto_measure.LR)
+        proto_adagrad.v3_adagrad_plain(t_p, a_p, idx, g, proto_measure.LR)
+        pairs = [(t_k, t_p, table), (a_k, a_p, acc)]
+    torch.cuda.synchronize()
+    if proto_adagrad.launches_by_mode[kernel] != before + 1:
+        raise AssertionError(f"{kernel} did not launch")
+    touched = torch.zeros(n, dtype=torch.bool, device=table.device)
+    touched[idx[(idx >= 0) & (idx < n)].long()] = True
+    errs = []
+    for name, (k, p, orig) in zip(("table", "acc"), pairs):
+        errs.append(proto_measure.assert_close(f"{kernel} {name}", k, p))
+        if not torch.equal(k[~touched], orig[~touched]):
+            raise AssertionError(f"{kernel} changed untouched rows of {name}")
+    return max(errs)
+
+
+def phase_proto(smi_line):
+    """The adagrad prototypes P1 and P2 (``ops/kernels/proto_adagrad.py``):
+    each against its plain version at a small shape and at every published
+    shape of both scripts, with the last row touched twice and four
+    sentinels; one P2 wrapper call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
+    then both measurement paths (``scripts/proto_*_torch.py``), one line per
+    shape and variant, with the launch counters set to 0 just before and
+    read just after; and, for the kernels line, each kernel's device time
+    (every operation of its wrapper but the sort), wrapper time, plain
+    version's time and byte bound over 64 back-to-back launches at the
+    RetailRocket shape (P1's draw: P1 and the port's row-sparse kernel
+    ``separate`` from P1's measurement path, P2 timed here on the same
+    inputs). Returns {kernel: timing}."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import proto_adagrad, proto_measure as pm
+
+    shapes = [("small", 72, 225, 40, None)] + [s + (None,) for s in pm.MERGED_SHAPES] \
+        + list(pm.V3_SHAPES)
+    err = {k: 0.0 for k in proto_adagrad.MODES}
+    cases = []
+    for ci, (name, n, d, K, pool) in enumerate(shapes):
+        idx, g, table, acc = pm.draw(n, d, K, pool=pool, steps=1, seed=ci)
+        idx, g = idx[0].clone(), g[0]
+        idx[:2] = n - 1
+        idx[-4:] = SENTINEL
+        for kernel in proto_adagrad.MODES:
+            e = _proto_vs_plain(kernel, idx, g, table, acc)
+            err[kernel] = max(err[kernel], e)
+            cases.append({"kernel": kernel, "shape": name, "n_rows": n, "d": d, "K": K,
+                          "pool": pool, "max_abs_err": e})
+    emit({"phase": "proto", "cases": cases})
+
+    idx, g, table, acc = pm.draw(37120, 225, 2208, steps=1)
+    proto_adagrad.v3_adagrad(table, acc, idx[0], g[0], pm.LR)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        proto_adagrad.v3_adagrad(table, acc, idx[0], g[0], pm.LR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "proto_no_sync", "kernel": "P2", "sync_debug_mode": "error",
+          "passed": True})
+
+    proto_adagrad.reset_launches()
+    merged_recs = {}
+    for shape in pm.MERGED_SHAPES:
+        for rec in pm.measure_merged(*shape, smi_line):
+            emit({"phase": "proto_merged", **rec})
+            merged_recs[rec["dataset"], rec["variant"]] = rec
+    for shape in pm.V3_SHAPES:
+        for rec in pm.measure_v3(*shape, smi_line):
+            emit({"phase": "proto_v3", **rec})
+    launches = dict(proto_adagrad.launches_by_mode)
+    if not all(launches.values()):
+        raise AssertionError(f"a prototype kernel was not launched: {launches}")
+
+    # P1 and the separate layout were timed on this draw by measure_merged
+    name, n, d, K = next(s for s in pm.MERGED_SHAPES if s[0] == "retailrocket")
+    idx, g, table, acc = pm.draw(n, d, K)
+    merged = torch.cat([table, acc], dim=1)
+    distinct = pm.distinct_rows(idx, n)
+    p2 = pm.record({"shape": f"{n}x{d}", "K": K, "dataset": name}, "v3",
+                   lambda s: proto_adagrad.v3_adagrad(table, acc, idx[s], g[s], pm.LR),
+                   distinct, d, smi_line)
+    recs = {"P1": merged_recs[name, "merged"], "P2": p2,
+            "separate": merged_recs[name, "separate"]}
+    plain = {
+        "P1": lambda s: proto_adagrad.merged_adagrad_plain(merged, idx[s], g[s], pm.LR),
+        "P2": lambda s: proto_adagrad.v3_adagrad_plain(table, acc, idx[s], g[s], pm.LR),
+    }
+    out = {}
+    for kernel, rec in recs.items():
+        out[kernel] = {"launches": launches.get(kernel), "max_abs_err": err.get(kernel),
+                       "ms": rec["kernel_us_per_launch"] / 1e3,
+                       "step_ms": rec["us_per_step"] / 1e3,
+                       "plain_ms": pm.steps_us(plain[kernel], reps=3) / 1e3
+                       if kernel in plain else None,
+                       "bound_ms": rec["bound_us"] / 1e3, "bytes": rec["bytes"],
+                       "device_ms_per_step": rec["device_us_per_step"] / 1e3}
+    emit({"phase": "proto_timing", "shape": name, "n_rows": n, "d": d, "K": K,
+          "v3_grid": proto_adagrad.persistent_grid(torch.cuda.current_device(), d),
+          "card": smi_line, **out})
+    return out
+
+
 # the kernels line: mode -> (line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": (419, "train"), "K2": (484, "train_sr"),
                 "K3": (808, "train_adam_sr"), "K4": (248, "train_onehot")}
+# P1, P2 -> the TPU kernel; their launches are the proto phase's
+PROTO_TABLE = {"P1": "scripts/proto_merged_kernel.py:31",
+               "P2": "scripts/proto_v3_kernel.py:63"}
 
 
 def main() -> int:
@@ -698,20 +824,31 @@ def main() -> int:
     paths["train_onehot"] = phase_train_onehot(smi_line)
     phase_learn()
     paths["learn_sr"] = phase_learn_sr(smi_line)
-    emit({"kernels": [{
+    proto = phase_proto(smi_line)
+    # library_ms: no single PyTorch call computes these functions (PERF.md);
+    # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
+    kernels = [{
         "name": f"sparse_update[{mode}]",
         "route": "cuda",
         "source": "gru4rec_tpu_torch/csrc/sparse_update.cu",
         "replaces": f"gru4rec_tpu/ops/kernels/sparse_update.py:{line}",
         "launches": paths[phase]["launches"][mode],
-        "max_abs_err": timing[mode]["max_abs_err"],
-        "ms": timing[mode]["ms"],
-        "plain_ms": timing[mode]["plain_ms"],
-        "bound_ms": timing[mode]["bound_ms"],
+        **{k: timing[mode][k] for k in ("max_abs_err", "ms", "step_ms", "plain_ms",
+                                        "bound_ms")},
         "bound_by": "bytes",
-        # no single PyTorch call computes this function (PERF.md)
         "library_ms": None,
-    } for mode, (line, phase) in KERNEL_TABLE.items()]})
+    } for mode, (line, phase) in KERNEL_TABLE.items()]
+    kernels += [{
+        "name": f"proto_adagrad[{kernel}]",
+        "route": "cuda",
+        "source": "gru4rec_tpu_torch/csrc/proto_adagrad.cu",
+        "replaces": replaces,
+        **{k: proto[kernel][k] for k in ("launches", "max_abs_err", "ms", "step_ms",
+                                         "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for kernel, replaces in PROTO_TABLE.items()]
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

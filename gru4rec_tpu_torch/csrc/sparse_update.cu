@@ -21,7 +21,7 @@
 // per sorted position. Block b exits unless its row is the head of a run of
 // equal indices and a real row (sentinels are INT32_MAX, padding rows are
 // >= n_rows). The head block sums the run's gradient rows in sorted order
-// (the dedup, deterministic, no atomics), then applies the update with
+// (the dedup, deterministic, no atomics; sorted_runs.cuh), then applies the update with
 // float32 math in registers and writes the table, state and velocity rows.
 //
 // Bound. Memory: per distinct row it reads and writes the table, state and
@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sorted_runs.cuh"
 
 namespace {
 
@@ -99,11 +101,9 @@ __global__ void sparse_update_kernel(const float* __restrict__ g,
                                      int d, ST* __restrict__ state, int ds,
                                      VT* __restrict__ vel, Hyper h) {
   const int b = blockIdx.x;
+  if (!is_run_head(sidx, b, n_rows)) return;
   const int r = sidx[b];
-  if ((unsigned)r >= (unsigned)n_rows) return;  // sentinel or padding lane
-  if (b > 0 && sidx[b - 1] == r) return;        // not the head of its run
-  int end = b + 1;
-  while (end < K && sidx[end] == r) ++end;
+  const int end = run_end(sidx, b, K);
 
   float* trow = table + (int64_t)r * d;
   ST* srow = state + (int64_t)r * ds;
@@ -124,8 +124,7 @@ __global__ void sparse_update_kernel(const float* __restrict__ g,
   }
 
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float gc = 0.f;
-    for (int k = b; k < end; ++k) gc += g[order[k] * (int64_t)d + c];
+    const float gc = run_sum(g, order, b, end, d, c);
     const float gg = gc * gc;
     float gs;
     if (ADAPT == ADAGRAD) {

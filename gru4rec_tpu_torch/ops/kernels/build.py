@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``gru4rec_tpu_torch/_build/<name>-<hash>.so`` at first use, keyed on a hash
-of the source and the flags, and loaded with ``ctypes``. The sources have a
+of the flags, the source and the shared headers ``csrc/*.cuh``, and loaded
+with ``ctypes``. The sources have a
 plain C interface (no PyTorch headers), so a build takes seconds. Nothing
 here runs at import time.
 """
@@ -19,7 +20,7 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("sparse_update",)
+SOURCES = ("sparse_update", "proto_adagrad")
 # -fmad=false and no --use_fast_math: the kernels round as the plain torch
 # versions they are held against do (one rounding per operation)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [name + ".cu", *headers]:  # a source and every header it may include
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

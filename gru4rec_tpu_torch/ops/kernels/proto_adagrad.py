@@ -1,0 +1,187 @@
+"""Row-sparse adagrad prototypes P1 and P2: the hand-written CUDA kernels' wrappers.
+
+Replaces the Pallas TPU kernels of the repo's two measurement scripts with
+``csrc/proto_adagrad.cu``, both adagrad with no momentum and no L2 on
+float32 tables (per distinct row, with ``g`` its summed duplicate gradient
+rows: ``a += g * g; t -= lr * g / sqrt(a + eps)``):
+
+* P1 ``merged_adagrad`` (``scripts/proto_merged_kernel.py:31``): table and
+  accumulator in one (n, 2d) buffer whose row is ``[t | a]``;
+* P2 ``v3_adagrad`` (``scripts/proto_v3_kernel.py:63``): separate (n, d)
+  table and accumulator; a memset and a small kernel list the real rows and
+  count them on the device, then the persistent blocks of one launch loop
+  over that list through a depth-4 ``cp.async`` ring.
+
+No package entry point calls them; their path is the measurement of
+``ops/kernels/proto_measure.py`` (``scripts/proto_*_torch.py``). The
+wrappers issue no host synchronisation: they stable-sort the indices with
+``torch.sort`` and launch on the current stream. Indices outside
+[0, n_rows) (the int32-max sentinel of masked lanes) are dropped; every
+row up to ``n_rows - 1`` is updated.
+
+Tensors on the CPU take the plain versions, :func:`merged_adagrad_plain`
+and :func:`v3_adagrad_plain` (torch ops: dedup with ``index_add_``, then
+``Optimizer.apply_sparse_plain``'s adagrad). A CUDA tensor always launches
+the kernel or raises. ``launches_by_mode`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from gru4rec_tpu_torch.ops.kernels.sparse_update import EPSILON
+
+MODES = ("P1", "P2")
+
+# Launches of each kernel since the last reset (one per call on the card).
+launches_by_mode = dict.fromkeys(MODES, 0)
+
+
+def reset_launches() -> None:
+    for m in MODES:
+        launches_by_mode[m] = 0
+
+
+def _lib():
+    from gru4rec_tpu_torch.ops.kernels.build import load
+
+    lib = load("proto_adagrad")
+    if lib.gru4rec_merged_adagrad.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gru4rec_merged_adagrad.argtypes = [p, p, p, i, p, i, i, f, f, p]
+        lib.gru4rec_v3_adagrad.argtypes = [p, p, p, i, p, p, p, p, i, i, i, f, f, p]
+        lib.gru4rec_v3_blocks_per_sm.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.gru4rec_merged_adagrad, lib.gru4rec_v3_adagrad,
+                   lib.gru4rec_v3_blocks_per_sm):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def persistent_grid(device_index: int, d: int) -> int:
+    """P2's persistent grid at width ``d``, derived once per card and width:
+    the blocks resident on one SM at once, times ``multi_processor_count``."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().gru4rec_v3_blocks_per_sm(d, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"v3_adagrad cannot run at width {d}: CUDA error {err}, "
+                           f"{blocks.value} blocks per SM")
+    return blocks.value * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check(tables, idx, g, d):
+    for t in (*tables, idx, g):
+        if t.device != tables[0].device:
+            raise ValueError("all tensors must lie on the table's device")
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+    for t in tables:
+        if t.dim() != 2 or t.dtype != torch.float32:
+            raise ValueError(f"tables must be 2-D float32, got {t.dtype} {tuple(t.shape)}")
+    if g.dtype != torch.float32 or g.dim() != 2 or g.shape[1] != d:
+        raise ValueError(f"gradient must be (K, {d}) float32, got {g.dtype} {tuple(g.shape)}")
+    if idx.dim() != 1 or idx.shape[0] != g.shape[0]:
+        raise ValueError("idx must be 1-D with one index per gradient row")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"idx must be an integer tensor, got {idx.dtype}")
+
+
+def _on_card(t) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
+def _dedup(idx, g, n_rows):
+    """The distinct real rows of ``idx`` and their summed gradient rows;
+    ``index_add_`` adds each row's duplicates in index order, which is the
+    kernels' stable-sorted order."""
+    keep = (idx >= 0) & (idx < n_rows)
+    rows, inv = torch.unique(idx[keep].long(), return_inverse=True)
+    gsum = torch.zeros((rows.numel(), g.shape[1]), dtype=g.dtype, device=g.device)
+    return rows, gsum.index_add_(0, inv, g[keep])
+
+
+def _adagrad(t, a, g, lr):
+    """``Optimizer.apply_sparse_plain``'s adagrad with no momentum and no L2."""
+    a = a + g**2
+    return t - lr * (g / torch.sqrt(a + EPSILON)), a
+
+
+def merged_adagrad_plain(merged, idx, g, lr):
+    """P1's plain version: updates ``merged`` (n, 2d) = [t | a] in place."""
+    d = merged.shape[1] // 2
+    rows, gsum = _dedup(idx, g, merged.shape[0])
+    m = merged[rows]
+    t, a = _adagrad(m[:, :d], m[:, d:], gsum, lr)
+    merged[rows] = torch.cat([t, a], dim=1)
+    return merged
+
+
+def v3_adagrad_plain(table, acc, idx, g, lr):
+    """P2's plain version: updates ``table`` and ``acc`` (n, d) in place."""
+    rows, gsum = _dedup(idx, g, table.shape[0])
+    t, a = _adagrad(table[rows], acc[rows], gsum, lr)
+    table[rows] = t
+    acc[rows] = a
+    return table, acc
+
+
+def _sorted(idx):
+    return torch.sort(idx.to(torch.int32), stable=True)
+
+
+def merged_adagrad(merged, idx, g, lr):
+    """P1: adagrad on the merged (n, 2d) float32 buffer ``[t | a]`` at the K
+    (possibly duplicated, sentinel-masked) indices ``idx`` with gradient
+    rows ``g`` (K, d), in place. Returns ``merged``."""
+    if not _on_card(merged):
+        return merged_adagrad_plain(merged, idx, g, lr)
+    n, d2 = merged.shape
+    if d2 % 2:
+        raise ValueError(f"the merged buffer's width must be even, got {d2}")
+    _check((merged,), idx, g, d2 // 2)
+    K = idx.shape[0]
+    if K == 0:
+        return merged
+    sidx, order = _sorted(idx)
+    err = _lib().gru4rec_merged_adagrad(
+        g.data_ptr(), sidx.data_ptr(), order.data_ptr(), K, merged.data_ptr(), n,
+        d2 // 2, lr, EPSILON, torch.cuda.current_stream(merged.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"merged_adagrad kernel launch failed: CUDA error {err}")
+    launches_by_mode["P1"] += 1
+    return merged
+
+
+def v3_adagrad(table, acc, idx, g, lr):
+    """P2: adagrad on ``table`` and ``acc`` (n, d) float32 at the K indices
+    ``idx`` with gradient rows ``g`` (K, d), in place; the count of real rows
+    stays on the device. Returns ``(table, acc)``."""
+    if not _on_card(table):
+        return v3_adagrad_plain(table, acc, idx, g, lr)
+    n, d = table.shape
+    if acc.shape != table.shape:
+        raise ValueError(f"acc must be {tuple(table.shape)}, got {tuple(acc.shape)}")
+    _check((table, acc), idx, g, d)
+    K = idx.shape[0]
+    if K == 0:
+        return table, acc
+    sidx, order = _sorted(idx)
+    items = torch.empty(K, 8, dtype=torch.int32, device=table.device)  # csrc Item
+    n_real = torch.empty(1, dtype=torch.int32, device=table.device)
+    err = _lib().gru4rec_v3_adagrad(
+        g.data_ptr(), sidx.data_ptr(), order.data_ptr(), K, items.data_ptr(),
+        n_real.data_ptr(), table.data_ptr(), acc.data_ptr(), n, d,
+        persistent_grid(table.device.index, d), lr, EPSILON,
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"v3_adagrad kernel launch failed: CUDA error {err}")
+    launches_by_mode["P2"] += 1
+    return table, acc

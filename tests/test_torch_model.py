@@ -80,7 +80,7 @@ def test_forward_matches_jax(mode, n_layers):
               **MODES[mode])
     jcfg, cfg = JaxConfig(**kw), GRU4RecConfig(**kw)
     params = _np_tree(jgru.init_params(jcfg, n_items))
-    tparams = params_from_jax(params)
+    tparams = params_from_jax(params, device="cpu")
     rng = np.random.RandomState(0)
     X = rng.randint(0, n_items, B)
     Yfull = np.concatenate([rng.randint(0, n_items, B), rng.randint(0, n_items, n_neg)])
@@ -129,7 +129,7 @@ def test_bfloat16_compute_rounds_operands_like_jax():
     H = [(rng.randn(4, 16) * 0.1).astype(np.float32)]
     _, jy = jgru.forward(params, _gathered(params, jcfg, X, Yfull, "jax"),
                          [jnp.asarray(H[0])], jcfg, M=4, training=False)
-    _, ty = gru.forward(params_from_jax(params),
+    _, ty = gru.forward(params_from_jax(params, device="cpu"),
                         _gathered(params, cfg, X, Yfull, "torch"),
                         [torch.from_numpy(H[0])], cfg, M=4, training=False)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
@@ -246,3 +246,16 @@ def test_config_grammar_round_trips():
     got = GRU4RecConfig.from_parameter_string(s).to_dict()
     assert got == JaxConfig.from_parameter_string(s).to_dict()
     assert GRU4RecConfig.from_dict(got).to_dict() == got
+
+
+def test_convert_runs_on_the_card_unless_asked_for_the_cpu():
+    """``io/convert``'s ``device=None`` is the card; where there is none it
+    raises instead of falling back to the CPU."""
+    a = {"Wy": np.ones((2, 3), np.float32)}
+    if torch.cuda.is_available():
+        assert params_from_jax(a)["Wy"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            params_from_jax(a)
+    assert params_from_jax(a, device="cpu")["Wy"].device.type == "cpu"
+

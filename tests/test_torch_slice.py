@@ -138,9 +138,10 @@ def _chunk_setup(opt_state_dtype):
 
 
 def sync_from_jax(tstate, jstate):
-    tstate.params = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    tstate.params = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params),
+                                    device="cpu")
     tstate.opt_state = opt_state_from_jax(
-        jax.tree_util.tree_map(np.asarray, jstate.opt_state))
+        jax.tree_util.tree_map(np.asarray, jstate.opt_state), device="cpu")
     tstate.H = [torch.from_numpy(np.array(h)) for h in jstate.H]
 
 
@@ -239,7 +240,8 @@ def test_fit_then_evaluate_matches_jax(opt_state_dtype, jax_models, monkeypatch)
                                                   batch_size=16)
     # on the same weights, every deterministic tie mode, full catalog and an
     # item subset
-    m_t.params = params_from_jax(jax.tree_util.tree_map(np.asarray, m_j.params))
+    m_t.params = params_from_jax(jax.tree_util.tree_map(np.asarray, m_j.params),
+                                 device="cpu")
     subset = [f"item_{i}" for i in range(0, N_ITEMS, 2)]
     for kw in ({"mode": "standard"}, {"mode": "conservative"}, {"mode": "median"},
                {"mode": "standard", "items": subset}, {"mode": "median", "items": subset}):

@@ -77,9 +77,10 @@ def cfg_kwargs(**kw):
 
 
 def sync_from_jax(tstate, jstate):
-    tstate.params = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    tstate.params = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params),
+                                    device="cpu")
     tstate.opt_state = opt_state_from_jax(
-        jax.tree_util.tree_map(np.asarray, jstate.opt_state))
+        jax.tree_util.tree_map(np.asarray, jstate.opt_state), device="cpu")
     tstate.H = [torch.from_numpy(np.array(h)) for h in jstate.H]
 
 

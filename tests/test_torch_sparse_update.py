@@ -135,7 +135,7 @@ def test_apply_sparse_matches_jax(adapt, momentum, lmbd, state_dtype, path,
     for k, v in st_t.items():
         np.testing.assert_array_equal(
             v.float().numpy()[~touched],
-            tensor_from_numpy(state0[k]).to(v.dtype).float().numpy()[~touched])
+            tensor_from_numpy(state0[k], device="cpu").to(v.dtype).float().numpy()[~touched])
 
 
 def test_cpu_wrapper_takes_plain_version_and_does_not_count():

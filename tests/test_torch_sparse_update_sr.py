@@ -80,7 +80,7 @@ def _inputs(seed, d, kw):
                 a[:, 2 * d + 2] = rng.randint(0, 3, N_ROWS)
             else:
                 a[:, 2 * d:] = rng.randint(0, 5, (N_ROWS, 1))
-        state[k] = tensor_from_numpy(a).to(v.dtype)
+        state[k] = tensor_from_numpy(a, device="cpu").to(v.dtype)
     return table, steps, state
 
 
@@ -132,7 +132,7 @@ def _steps_from_jax_state(kw, table, steps, state0, monkeypatch, path):
         st_j = {k: np.asarray(v) for k, v in st_j.items()}
         yield idx, tbl, st, t_j, st_j, before.numpy()
         tbl = torch.from_numpy(t_j.copy())
-        st = {k: tensor_from_numpy(v) for k, v in st_j.items()}
+        st = {k: tensor_from_numpy(v, device="cpu") for k, v in st_j.items()}
 
 
 def _run_torch(kw, table, steps, state0, device="cpu", plain=False):
@@ -274,7 +274,7 @@ def test_sr_state_carries_across_from_jax_bit_exactly():
     ml_dtypes = pytest.importorskip("ml_dtypes")
     rng = np.random.RandomState(3)
     a = (rng.randn(16, 140) * 10).astype(ml_dtypes.bfloat16)
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(_bf16_bits(t), a.view(np.int16))
 
