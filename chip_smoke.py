@@ -16,10 +16,15 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    and 300; the stochastic-rounding mode (``bfloat16_sr``, adagrad and adam
    x momentum x L2, a slow-v1 adam, widths 300, 128 and 12) with the stored bf16
    state bit-equal on rows touched once and within one bf16 ulp elsewhere;
-   then times each mode at its main path's shape over 64 back-to-back
-   launches on distinct index sets (``kernel_timing``, one line per mode):
-   the kernel's device time per launch (``torch.profiler``), the wrapper's
-   and the plain version's time per call (CUDA events);
+   the edges of the kernel's in-kernel dedup (int64 indices, K = 9,000, a
+   run longer than the kernel lists, the last row, a padding row, width
+   513) and one call under
+   ``torch.cuda.set_sync_debug_mode("error")``; then times each main path's
+   update at its shape over 64 back-to-back calls on distinct index sets
+   (``kernel_timing``, one line per mode and path, K1 twice): the device
+   time per call of every operation the wrapper issues (``ms``, from
+   ``torch.profiler``; ``ops_per_call`` of them, the kernel alone), the
+   wrapper's and the plain version's time per call (CUDA events);
 4. reference — the training slice on the card against the same slice on
    the CPU at a small size, step by step;
 5. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
@@ -52,7 +57,8 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    then the measurement paths of ``scripts/proto_merged_kernel_torch.py``
    and ``scripts/proto_v3_kernel_torch.py`` (one line per shape and
    variant) and each kernel's timing at the RetailRocket shape;
-13. kernels — one JSON line per the port's kernel table (K1-K4, P1, P2).
+13. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+   one-hot ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
 then exits non-zero. The last line is
@@ -221,6 +227,18 @@ def _lane_set(rng, n_items, B):
     return lanes.astype(np.int32)
 
 
+def _edge_index(rng, n_rows, K, run):
+    """K indices for the dedup's edges: uniform rows, one row (the last)
+    at ``run`` random positions, five sentinels and a padding row
+    (``n_rows + 3``, dropped as the sentinel is)."""
+    idx = rng.randint(0, n_rows, K).astype(np.int64)
+    pos = rng.permutation(K)
+    idx[pos[:run]] = n_rows - 1
+    idx[pos[run:run + 5]] = SENTINEL
+    idx[pos[run + 5]] = n_rows + 3
+    return idx
+
+
 def _make_case(adapt, momentum, lmbd, state_dtype, n_rows, d, idx, seed,
                adapt_params=()):
     import torch
@@ -253,6 +271,15 @@ def _make_case(adapt, momentum, lmbd, state_dtype, n_rows, d, idx, seed,
             v.copy_(torch.rand(v.shape, generator=gen, device=DEVICE) * 0.3)
     g = torch.randn((len(idx), d), generator=gen, device=DEVICE) * 0.1
     return opt, table, torch.from_numpy(idx).to(DEVICE), g, st
+
+
+def _onehot_wy_sets(rng, n_items, B, n_sample, n):
+    """``n`` index sets of the one-hot path's ``Wy`` update: B lanes (a few
+    masked to the sentinel) then ``n_sample`` uniform negatives
+    (``sample_alpha`` 0)."""
+    return np.stack([np.concatenate([_lane_set(rng, n_items, B),
+                                     rng.randint(0, n_items, n_sample).astype(np.int32)])
+                     for _ in range(n)])
 
 
 def _compare(name, a, b):
@@ -354,19 +381,54 @@ def phase_kernel():
         for width in (300, 128, 12):
             cases.append((adapt, 0.4, 0.01, "bfloat16_sr", width, ()))
     cases.append(("adam", 0.4, 0.01, "bfloat16_sr", d, (0.995, 0.999)))
+    cases = [c + ("flagship",) for c in cases]
+    # the edges of the in-kernel dedup: int64 indices; K = 9,000 (nine
+    # rounds of the dedup pass) with the last row at 40 positions (past the
+    # 32 further positions a run head lists), at the vector (256) and
+    # scalar (513) widths
+    idxs = {"flagship": idx, "flagship_int64": idx.astype(np.int64),
+            "edges": _edge_index(rng, n_rows, 9000, 40)}
+    cases += [("adagrad", 0.4, 0.01, "bfloat16", d, (), "flagship_int64"),
+              ("adam", 0.4, 0.0, "bfloat16_sr", d, (), "flagship_int64"),
+              ("adagrad", 0.4, 0.0, "bfloat16", d, (), "edges"),
+              ("adadelta", 0.4, 0.01, "float32", 513, (), "edges"),
+              ("adam", 0.4, 0.01, "bfloat16_sr", 513, (), "edges")]
     results = []
-    for ci, (adapt, momentum, lmbd, sd, width, ap) in enumerate(cases):
+    for ci, (adapt, momentum, lmbd, sd, width, ap, iname) in enumerate(cases):
         opt, table, idx_t, g, st = _make_case(adapt, momentum, lmbd, sd, n_rows,
-                                              width, idx, seed=ci, adapt_params=ap)
+                                              width, idxs[iname], seed=ci, adapt_params=ap)
         err, share, mode = _kernel_vs_plain(opt, table, idx_t, g, st)
         case = {"mode": mode, "adapt": adapt, "momentum": momentum, "lmbd": lmbd,
                 "opt_state_dtype": sd, "d": width, "adapt_params": list(ap),
+                "indices": f"{iname} ({str(idx_t.dtype).replace('torch.', '')}, "
+                           f"K {len(idx_t)})",
                 "state": {k: str(v.dtype).replace("torch.", "") for k, v in st.items()},
                 "max_abs_err": err}
         if share is not None:
             case["sr_bit_equal_share"] = share
         results.append(case)
     emit({"phase": "kernel", "n_rows": n_rows, "K": K, "cases": results})
+    _no_sync_call(n_rows, d, idx)
+
+
+def _no_sync_call(n_rows, d, idx):
+    """One wrapper call under ``torch.cuda.set_sync_debug_mode("error")``:
+    the wrapper must issue no host synchronisation."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    opt, table, idx_t, g, st = _make_case("adagrad", 0.4, 0.0, "bfloat16", n_rows, d,
+                                          idx, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sparse_update.fused_update(opt, table, idx_t, g, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_no_sync", "mode": "K1", "sync_debug_mode": "error",
+          "passed": True})
 
 
 def _row_bytes(opt, st, d, sr):
@@ -386,15 +448,24 @@ def _row_bytes(opt, st, d, sr):
     return row
 
 
+# every device operation fused_update issues per call, by a substring of
+# its name in the profiler's trace: the kernel alone
+CALL_OPS = ("sparse_update_kernel",)
+
+
 def phase_kernel_timing():
-    """Each mode at its main path's shape and settings: one kernel-vs-plain
-    check, then ``STEPS`` back-to-back calls on as many distinct index sets
-    (``ops/kernels/proto_measure.py``): the kernel's own device time per
-    launch under ``torch.profiler`` (``ms``), the CUDA-event time per call of
-    the wrapper, sort plus kernel (``step_ms``), and of the plain version
-    (``plain_ms``), medians over runs; and the byte bound, averaged over the
-    index sets: the K indices and gradient rows read once, plus
-    ``_row_bytes`` for each distinct row. Returns {mode: timing}."""
+    """Each main path's update at its shape and settings: one
+    kernel-vs-plain check, then ``STEPS`` back-to-back calls on as many
+    distinct index sets (``ops/kernels/proto_measure.py``): under
+    ``torch.profiler`` the device time per call of every operation the
+    wrapper issues (``ms``: ``CALL_OPS``, and the profiler must see no
+    other operation once per call; so ``ops_per_call`` is 1 and ``ms`` is
+    the kernel's own time); the CUDA-event time per call of
+    the wrapper (``step_ms``) and of the plain version (``plain_ms``),
+    medians over runs; and the byte bound, averaged over the index sets: the
+    K indices and gradient rows read once, plus ``_row_bytes`` for each
+    distinct row. Returns {key: timing}, keyed by mode, and "K1 onehot Wy"
+    for K1 on the one-hot path's ``Wy``."""
     import torch
 
     from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
@@ -407,15 +478,20 @@ def phase_kernel_timing():
     flagship = _index_sets(rng, N_ITEMS, K, B, steps)
     rsc_rows = pad_items(RSC15_ITEMS, 128)
     onehot = np.stack([_lane_set(rng, RSC15_ITEMS, 32) for _ in range(steps)])
-    rows = {  # mode: (main path, adapt, momentum, state dtype, n_rows, d, index sets)
-        "K1": ("train: flagship Wy", "adagrad", 0.4, "bfloat16", n_rows, d, flagship),
-        "K2": ("train_sr: flagship Wy", "adagrad", 0.4, "bfloat16_sr", n_rows, d, flagship),
-        "K3": ("train_adam_sr: flagship Wy", "adam", 0.4, "bfloat16_sr", n_rows, d, flagship),
-        "K4": ("train_onehot: RSC15 Wx0", "adagrad", 0.3, "bfloat16", rsc_rows, 3 * 100,
+    onehot_wy = _onehot_wy_sets(rng, RSC15_ITEMS, 32, 2048, steps)
+    rows = {  # key: (mode, main path, adapt, momentum, state dtype, n_rows, d, index sets)
+        "K1": ("K1", "train: flagship Wy", "adagrad", 0.4, "bfloat16", n_rows, d, flagship),
+        "K2": ("K2", "train_sr: flagship Wy", "adagrad", 0.4, "bfloat16_sr", n_rows, d,
+               flagship),
+        "K3": ("K3", "train_adam_sr: flagship Wy", "adam", 0.4, "bfloat16_sr", n_rows, d,
+               flagship),
+        "K4": ("K4", "train_onehot: RSC15 Wx0", "adagrad", 0.3, "bfloat16", rsc_rows, 3 * 100,
                onehot),
+        "K1 onehot Wy": ("K1", "train_onehot: Wy", "adagrad", 0.3, "bfloat16", rsc_rows,
+                         128, onehot_wy),
     }
     out = {}
-    for mode, (path, adapt, momentum, sd, rows_n, width, sets) in rows.items():
+    for key, (mode, path, adapt, momentum, sd, rows_n, width, sets) in rows.items():
         opt, table, idx_t, g, st = _make_case(adapt, momentum, 0.0, sd, rows_n, width,
                                               sets[0], seed=99)
         err, share, got_mode = _kernel_vs_plain(opt, table, idx_t, g, st)
@@ -431,20 +507,22 @@ def phase_kernel_timing():
                                                     sr_seed=sr_seed)
         plain = lambda s: opt.apply_sparse_plain(table, idxs[s], gs[s], st, sr_seed=sr_seed)
         times = proto_measure.device_times(kern)
-        ms = proto_measure.kernel_us(times, ("sparse_update_kernel",), steps) / 1e3
+        ms = proto_measure.kernel_us(times, CALL_OPS, steps, exclusive=True) / 1e3
         step_ms = proto_measure.steps_us(kern) / 1e3
         plain_ms = proto_measure.steps_us(plain, reps=3) / 1e3
         U = float(np.mean(proto_measure.distinct_rows(idxs, rows_n)))
         bytes_moved = (Kn * 4 + Kn * width * 4   # indices, gradient rows
                        + U * _row_bytes(opt, st, width, sr_seed is not None))
-        out[mode] = {"main_path": path, "adapt": adapt, "momentum": momentum,
-                     "opt_state_dtype": sd, "n_rows": rows_n, "d": width, "K": Kn,
-                     "index_sets": steps, "distinct_rows": U, "ms": ms,
-                     "step_ms": step_ms, "plain_ms": plain_ms,
-                     "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-                     "bytes": bytes_moved, "max_abs_err": err,
-                     "sr_bit_equal_share": share}
-        emit({"phase": "kernel_timing", "mode": mode, **out[mode]})
+        out[key] = {"path": path, "adapt": adapt, "momentum": momentum,
+                    "opt_state_dtype": sd, "n_rows": rows_n, "d": width, "K": Kn,
+                    "index_sets": steps, "distinct_rows": U, "ms": ms,
+                    "ops_per_call": proto_measure.ops_per_call(times, steps),
+                    "ops": {k[:60]: v for k, v in times.items()},
+                    "step_ms": step_ms, "plain_ms": plain_ms,
+                    "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                    "bytes": bytes_moved, "max_abs_err": err,
+                    "sr_bit_equal_share": share}
+        emit({"phase": "kernel_timing", "mode": mode, **out[key]})
     return out
 
 
@@ -790,10 +868,11 @@ def phase_proto(smi_line):
     return out
 
 
-# the kernels line: mode -> (line of the TPU kernel in
+# the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
-KERNEL_TABLE = {"K1": (419, "train"), "K2": (484, "train_sr"),
-                "K3": (808, "train_adam_sr"), "K4": (248, "train_onehot")}
+KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
+                "K3": ("K3", 808, "train_adam_sr"), "K4": ("K4", 248, "train_onehot"),
+                "K1 onehot Wy": ("K1", 419, "train_onehot")}
 # P1, P2 -> the TPU kernel; their launches are the proto phase's
 PROTO_TABLE = {"P1": "scripts/proto_merged_kernel.py:31",
                "P2": "scripts/proto_v3_kernel.py:63"}
@@ -828,16 +907,17 @@ def main() -> int:
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{
-        "name": f"sparse_update[{mode}]",
+        "name": f"sparse_update[{key}]",
         "route": "cuda",
         "source": "gru4rec_tpu_torch/csrc/sparse_update.cu",
         "replaces": f"gru4rec_tpu/ops/kernels/sparse_update.py:{line}",
+        "path": timing[key]["path"],
         "launches": paths[phase]["launches"][mode],
-        **{k: timing[mode][k] for k in ("max_abs_err", "ms", "step_ms", "plain_ms",
-                                        "bound_ms")},
+        **{k: timing[key][k] for k in ("max_abs_err", "ms", "step_ms", "plain_ms",
+                                       "bound_ms")},
         "bound_by": "bytes",
         "library_ms": None,
-    } for mode, (line, phase) in KERNEL_TABLE.items()]
+    } for key, (mode, line, phase) in KERNEL_TABLE.items()]
     kernels += [{
         "name": f"proto_adagrad[{kernel}]",
         "route": "cuda",

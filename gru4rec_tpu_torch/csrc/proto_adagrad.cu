@@ -16,15 +16,16 @@
 // grid steps at the last 8-row group and so cannot update a row there).
 //
 // Both take the K raw indices stable-sorted by the wrapper (torch.sort) with
-// the sort's permutation, and sum each run of equal indices in sorted order
-// (deterministic dedup, no atomics) through sorted_runs.cuh, as
-// sparse_update.cu does.
+// the sort's permutation, standing for the scripts' `group_pack` feed, and
+// sum each run of equal indices in sorted order (deterministic dedup, no
+// atomics) through sorted_runs.cuh. (The row-sparse kernel, sparse_update.cu,
+// takes no sort: it dedups the raw indices itself.)
 //
 // P1: one block per sorted position; a block that heads a run of a real row
 // reads the run's gradient rows and the row's 2d-wide [t | a] once and
-// writes it once. That is K1's design (sparse_update.cu) on the merged
-// layout: the TPU's question was whether one copy per row instead of two
-// helps; here both layouts cost one coalesced pass over the same bytes.
+// writes it once: a sort-fed row-sparse update on the merged layout. The
+// TPU's question was whether one copy per row instead of two helps; here
+// both layouts cost one coalesced pass over the same bytes.
 //
 // P2: a small kernel writes one record per run head of a real row (`items`:
 // row, run start and length, the first gradient rows' positions) and their

@@ -1,6 +1,6 @@
 // Runs of equal indices over K raw indices stable-sorted by the wrapper
-// (torch.sort, with the sort's permutation `order`), shared by the row-sparse
-// kernels of sparse_update.cu and proto_adagrad.cu.
+// (torch.sort, with the sort's permutation `order`), for the row-sparse
+// prototypes of proto_adagrad.cu.
 //
 // A sorted position b heads a run when its row is real ([0, n_rows): the
 // int32-max sentinel of masked lanes and padding rows are dropped) and

@@ -13,15 +13,23 @@ One kernel serves the four TPU kernels, by mode:
   state (``opt_state_dtype="bfloat16_sr"``), adagrad;
 * K3 ``fused_update_v4``, the same kernel fed compact deduped gradients,
   which JAX uses only for adam with SR state: here SR adam. The port's
-  kernel always sums duplicates from the sorted raw indices, so "compact"
-  is what every mode does;
+  kernel always sums duplicates itself, so "compact" is what every mode
+  does;
 * K4 ``_fused_update``, the v2 grid (non-SR, any width): other widths.
 
 ``launches_by_mode`` counts the launches of each mode.
 
-The kernel is memory-bound (see the source's header). The wrapper issues
-no host synchronisation: it stable-sorts the indices with ``torch.sort`` and
-launches one block per index on the current stream.
+A call is one device operation: the kernel takes the raw int32 or int64
+indices as they are (no sort, cast, fill or scratch tensor) and dedups them
+itself. One warp per raw position; the warp whose index is a real row
+([0, n_rows): the int32-max sentinel and padding rows are dropped) that no
+earlier position holds is the run head, and sums the gradient rows of every
+position holding its row in ascending position (the order of a stable
+sort, as the plain version sums them), then updates the row. The kernel is
+memory-bound (see the source's header). The wrapper allocates nothing,
+issues no host synchronisation and launches on the current stream; it picks
+the kernel's vector path (:func:`vector_path`) from the tensors' pitches and
+pointers.
 
 Tensors on the CPU take the plain version, ``Optimizer.apply_sparse_plain``
 (the torch-op path). A CUDA tensor always launches the kernel or raises.
@@ -39,6 +47,7 @@ _ADAPT_CODES = {"adagrad": 0, "rmsprop": 1, "adadelta": 2, "adam": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 MODES = ("K1", "K2", "K3", "K4")
+VEC = 4  # columns per access on the kernel's vector path
 
 # Launches of the kernel by mode since the last reset (one per call on the
 # card).
@@ -70,10 +79,19 @@ def _function():
     fn = load("sparse_update").gru4rec_sparse_update
     if fn.argtypes is None:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        fn.argtypes = [i, i, i, i, u, u, p, p, p, i, p, i, i, p, i, p,
+        fn.argtypes = [i, i, i, i, u, u, p, p, i, i, p, i, i, p, i, p, i,
                        f, f, f, f, f, f, f, f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def vector_path(*tensors) -> bool:
+    """Whether the kernel may take its vector path for these 2-D tensors
+    (gradient, table, state, velocity): each row pitch and base pointer a
+    multiple of ``VEC`` elements, i.e. 16 bytes for float32 and 8 for
+    bfloat16, so that a lane reads and writes ``VEC`` columns at once."""
+    return all(t.shape[-1] % VEC == 0 and t.data_ptr() % (VEC * t.element_size()) == 0
+               for t in tensors)
 
 
 def _check(opt, table, idx, g, st, sr=False):
@@ -137,16 +155,16 @@ def fused_update(opt, table, idx, g, st, sr_seed=None):
     if K == 0:
         return table, st
     seed, row_offset = sr_seed if sr else (0, 0)
-    sidx, order = torch.sort(idx.to(torch.int32), stable=True)
+    rows = [g, table, state] + ([vel] if vel is not None else [])
     err = _function()(
         _ADAPT_CODES[opt.adapt], _DTYPE_CODES[state.dtype],
         -1 if vel is None else _DTYPE_CODES[vel.dtype],
         # SR mode: 1 rounds the slow slot, 2 also adam's first moment
         (2 if opt.sr_first_moment else 1) if sr else 0,
         seed & 0xFFFFFFFF, row_offset & 0xFFFFFFFF,
-        g.data_ptr(), sidx.data_ptr(), order.data_ptr(), K,
+        g.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), K,
         table.data_ptr(), n, d, state.data_ptr(), state.shape[1],
-        None if vel is None else vel.data_ptr(),
+        None if vel is None else vel.data_ptr(), int(vector_path(*rows)),
         opt.lr, opt.momentum, opt.lmbd, opt.v1, 1.0 - opt.v1, opt.v2,
         1.0 - opt.v2, log_decay(opt.v1), log_decay(opt.v2), EPSILON,
         torch.cuda.current_stream(table.device).cuda_stream,

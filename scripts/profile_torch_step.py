@@ -4,9 +4,10 @@ Runs ``gru4rec_tpu_torch``'s chunk function at the RetailRocket flagship
 config (chip_smoke.py's ``flagship_cfg``, on its synthetic data) on one
 CUDA device: a warm-up chunk, a timed chunk (host clock around a
 synchronised chunk of ``--steps`` steps), then the same number of steps
-under ``torch.profiler``. Prints one JSON line: wall ms per step, device
-busy ms per step (the union of the traced kernels' intervals), the device's
-idle share, and every kernel ranked by device time; writes the chrome trace
+under ``torch.profiler``. Prints one JSON line: the card's ``nvidia-smi``
+name and power limit, wall ms per step, device busy ms per step (the union
+of the traced kernels' intervals), the device's idle share, kernel launches
+per step, and every kernel ranked by device time; writes the chrome trace
 to ``--trace`` when given.
 
     python3 scripts/profile_torch_step.py --steps 64
@@ -53,6 +54,7 @@ def main():
     from gru4rec_tpu_torch.data.scheduler import build_schedule, session_order
     from gru4rec_tpu_torch.data.tools import compute_offset
     from gru4rec_tpu_torch.models.gru4rec import resolve_device
+    from gru4rec_tpu_torch.ops.kernels.proto_measure import nvidia_smi_line
     from gru4rec_tpu_torch.ops.sampling import build_alias_table
     from gru4rec_tpu_torch.train import step as tstep
 
@@ -107,6 +109,7 @@ def main():
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "card": nvidia_smi_line(),
         "steps": S,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy / S,

@@ -6,9 +6,12 @@ shapes (diginetica, rees46, yoochoose, retailrocket) and index draw (K
 uniform indices below ``n_rows - 8``), 64 steps back to back per variant
 (``gru4rec_tpu_torch/ops/kernels/proto_measure.py``). Prints the card's
 ``nvidia-smi`` name and power limit, then one JSON line per shape and
-variant: ``shape``, ``K``, ``variant``, ``us_per_step`` (CUDA events, sort
-plus kernel), ``kernel_us_per_launch`` (``torch.profiler``) and the byte
-bound. Needs one CUDA device; run from the root of a checkout:
+variant: ``shape``, ``K``, ``variant``, ``us_per_step`` (CUDA events; for
+"merged" sort plus kernel, for "separate" the sort-free kernel alone),
+``kernel_us_per_launch`` (``torch.profiler``, the sort left out),
+``ops_per_call`` and the byte bound. "separate" dedups in the kernel and
+"merged" keeps the sort feed, so the two differ in more than the layout.
+Needs one CUDA device; run from the root of a checkout:
 
     python3 scripts/proto_merged_kernel_torch.py
 """

@@ -7,11 +7,13 @@ indices drawn from a pool of distinct rows below ``n_rows - 8``), 64 steps
 back to back per variant (``gru4rec_tpu_torch/ops/kernels/proto_measure.py``).
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per shape and variant: ``shape``, ``K``, ``pool``, ``variant``,
-``us_per_step`` (CUDA events, sort or prep plus kernel),
-``kernel_us_per_launch`` (``torch.profiler``: every device operation of the
-kernel wrapper but the sort, for "v3" its memset, record kernel and loop
-kernel), the persistent grid of "v3" and the byte bound. Needs one
-CUDA device; run from the root of a checkout:
+``us_per_step`` (CUDA events; for "v3" sort, prep and kernel, for "v2" the
+sort-free kernel alone), ``kernel_us_per_launch`` (``torch.profiler``:
+every device operation of the kernel wrapper but P2's sort, for "v3" its
+memset, record kernel and loop kernel), ``ops_per_call``, the persistent
+grid of "v3" and the byte bound. "v2" dedups in the kernel and "v3" keeps
+the sort feed, so the two differ in more than P2's loop. Needs one CUDA
+device; run from the root of a checkout:
 
     python3 scripts/proto_v3_kernel_torch.py
 """

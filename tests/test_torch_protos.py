@@ -265,6 +265,49 @@ def test_kernel_time_is_a_mean_over_the_launches_seen(seen, ok):
             pm.kernel_us(times, pm.KERNEL_NAMES["v2"], 64)
 
 
+def test_whole_call_time_admits_no_other_operation():
+    """The row-sparse kernel's call is one device operation: with
+    ``exclusive`` an operation that the names do not list and that ran once
+    per call raises (a sort feed would); a rare one (a record of another
+    step) does not, and ``ops_per_call`` counts only the former."""
+    from gru4rec_tpu_torch.ops.kernels import proto_measure as pm
+
+    kernel = {"void sparse_update_kernel<0, true>": [200.0, 64]}
+    assert pm.kernel_us(kernel, pm.KERNEL_NAMES["v2"], 64, exclusive=True) == 3.125
+    assert pm.ops_per_call(kernel, 64) == 1
+    rare = {**kernel, "Memset (Device)": [1.0, 1]}
+    assert pm.kernel_us(rare, pm.KERNEL_NAMES["v2"], 64, exclusive=True) == 3.125
+    assert pm.ops_per_call(rare, 64) == 1
+    sorted_feed = {**kernel, "void sortKeyValueInplace<int>": [900.0, 63]}
+    assert pm.ops_per_call(sorted_feed, 64) == 2
+    with pytest.raises(RuntimeError, match="sortKeyValueInplace"):
+        pm.kernel_us(sorted_feed, pm.KERNEL_NAMES["v2"], 64, exclusive=True)
+    assert pm.kernel_us(sorted_feed, pm.KERNEL_NAMES["v2"], 64) == 3.125
+    assert set(pm.SORT_FREE) == {"separate", "v2"}
+
+
+@pytest.mark.parametrize("windows, want", [
+    ([{}, {"k": [64.0, 64]}], {"k": [64.0, 64]}),       # an empty window
+    ([{"k": [6.0, 6]}, {"k": [63.0, 63]}], {"k": [63.0, 63]}),  # most records lost
+    ([{"k": [60.0, 60]}], {"k": [60.0, 60]}),           # within 64 // 16
+    ([{"k": [4.0, 4]}] * 4, {"k": [4.0, 4]}),           # the last of the tries
+    ([{}] * 4, None),                                   # never a kernel: raises
+])
+def test_device_times_traces_a_short_window_again(windows, want, monkeypatch):
+    """The tracer on the card dropped records erratically, all of a window
+    once, and a measurement that raised on the first short window failed
+    the whole run; a short or empty window is now traced again."""
+    from gru4rec_tpu_torch.ops.kernels import proto_measure as pm
+
+    seen = iter(windows)
+    monkeypatch.setattr(pm, "_window", lambda step, steps: next(seen))
+    if want is None:
+        with pytest.raises(RuntimeError, match="no CUDA kernel"):
+            pm.device_times(None, steps=64)
+    else:
+        assert pm.device_times(None, steps=64) == want
+
+
 def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
     """A change to a ``csrc/*.cuh`` header rebuilds every source."""
     from gru4rec_tpu_torch.ops.kernels import build

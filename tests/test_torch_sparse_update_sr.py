@@ -23,8 +23,11 @@ across), over three steps with duplicated and sentinel indices.
   ``tests/test_torch_sparse_update.py`` holds against the Pallas kernel).
 
 The CUDA kernel's SR mode is held against the plain version on the card by
-the ``cuda``-marked test (``python -m pytest --noconftest -m cuda
-tests/test_torch_sparse_update_sr.py``).
+the ``cuda``-marked tests, also through the edges of the kernel's in-kernel
+dedup (K = 1, one run over 300 positions, only sentinels, K = 13, K =
+9,000; int32 and int64 indices; widths 256, 12 and 513) on a
+70,000-row table with the last row touched (``python -m pytest
+--noconftest -m cuda tests/test_torch_sparse_update_sr.py``).
 """
 
 import numpy as np
@@ -298,3 +301,72 @@ def test_cuda_sr_kernel_matches_plain_version(adapt, momentum, lmbd, adapt_param
         touched = _touched([idx for idx, _, _ in steps])
         for k in st_p:
             assert_sr_state_close(k, st_k[k], st_p[k].cpu(), touched)
+
+
+def _sr_edge_sets(n_rows, rng):
+    """Index sets (int64 numpy) for the edges of the kernel's dedup."""
+    k13 = rng.randint(0, n_rows, 13)
+    k13[[1, 8]] = n_rows - 1
+    k13[4] = SENTINEL
+    big = rng.randint(0, n_rows, 9000)  # a block reads 1,024 indices per round
+    big[rng.choice(9000, 50, replace=False)] = n_rows - 1
+    big[rng.choice(9000, 3, replace=False)] = SENTINEL
+    return {"K=1": np.array([n_rows - 1]), "one run": np.full(300, 7),
+            "all sentinel": np.full(8, SENTINEL), "K=13": k13, "K=9000": big}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 12, 513])
+@pytest.mark.parametrize("adapt", ["adagrad", "adam"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_cuda_sr_kernel_dedup_edges(idx_dtype, adapt, d):
+    """SR state through the kernel's dedup edges on a table of 70,000 rows
+    (the dither's row above 65,536), against the plain version on the card
+    at the tolerances of ``test_cuda_sr_kernel_matches_plain_version``:
+    bit-equal on rows touched once, one bf16 ulp elsewhere, limb counts
+    exact, untouched rows bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_rows = 70_000
+    rng = np.random.RandomState(d)
+    kw = _kw(adapt, 0.5, 1e-4, "bfloat16_sr")
+    opt = make_optimizer(GRU4RecConfig(**kw))
+    table = torch.from_numpy(rng.randn(n_rows, d).astype(np.float32))
+    st = opt.init_state(table, sparse=True)
+    for k, v in st.items():
+        a = (rng.rand(*v.shape) * 0.3).astype(np.float32)
+        if k == "acc2":  # limbs lo, mid, hi; zeros
+            a[:, 2 * d:] = 0.0
+            a[:, 2 * d] = rng.choice([0, 7, 255], n_rows)
+            a[:, 2 * d + 1] = rng.choice([0, 255], n_rows)
+        st[k] = torch.from_numpy(a).to(v.dtype)
+    for case, idx in _sr_edge_sets(n_rows, rng).items():
+        g = torch.from_numpy((rng.randn(len(idx), d) * 0.1).astype(np.float32))
+        idx_t = torch.from_numpy(idx.astype(np.int64)).to(idx_dtype)
+        sr_seed = (int(rng.randint(-2**31, 2**31 - 1)), 0)
+        t_k, st_k = table.cuda(), {k: v.cuda() for k, v in st.items()}
+        t_p, st_p = table.cuda(), {k: v.cuda() for k, v in st.items()}
+        sparse_update.reset_launches()
+        opt.apply_sparse(t_k, idx_t.cuda(), g.cuda(), st_k, sr_seed=sr_seed)
+        torch.cuda.synchronize()
+        assert sparse_update.launches_by_mode["K3" if adapt == "adam" else "K2"] == 1, case
+        opt.apply_sparse_plain(t_p, idx_t.cuda(), g.cuda(), st_p, sr_seed=sr_seed)
+        t_p, st_p = t_p.cpu(), {k: v.cpu() for k, v in st_p.items()}
+        real = idx[(idx >= 0) & (idx < n_rows)]
+        counts = np.bincount(real, minlength=n_rows)
+        touched, once = counts > 0, counts == 1
+        t_k = t_k.cpu()
+        np.testing.assert_allclose(t_k.numpy(), t_p.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=case)
+        assert torch.equal(t_k[~touched], table[~touched]), case
+        for k in st:
+            a, b = st_k[k].cpu(), st_p[k]
+            assert torch.equal(a[~touched], st[k][~touched]), (case, k)
+            if not touched.any():
+                continue
+            if k == "acc2":
+                assert torch.equal(a[:, 2 * d:], b[:, 2 * d:]), (case, "limbs")
+                a, b = a[:, :2 * d], b[:, :2 * d]
+            if k != "velocity":  # velocity: round to nearest, of a value corr1 moves
+                assert (_bf16_bits(a)[once] == _bf16_bits(b)[once]).all(), (case, k)
+            assert_sr_state_close(k, a, b, touched, min_equal=0.0)
