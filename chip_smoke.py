@@ -50,13 +50,20 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
 11. learn_sr — the same chain with adam, an embedding of 12 and
    ``bfloat16_sr`` state (K3 on ``E`` and ``Wy``), recall@1 >= 0.9;
 12. proto   — the adagrad prototypes P1 (merged ``[t | a]`` layout) and P2
-   (persistent loop over the real rows, ``cp.async`` ring) of
-   ``ops/kernels/proto_adagrad.py``: each against its plain version at a
-   small shape and at every published shape of its script with the last row
-   touched, P2's wrapper under ``torch.cuda.set_sync_debug_mode("error")``,
-   then the measurement paths of ``scripts/proto_merged_kernel_torch.py``
-   and ``scripts/proto_v3_kernel_torch.py`` (one line per shape and
-   variant) and each kernel's timing at the RetailRocket shape;
+   (block-local loop over the real rows, ``cp.async`` ring) of
+   ``ops/kernels/proto_adagrad.py``, both sort-free and one operation per
+   call: each against its plain version at a small shape and at every
+   published shape of its script with the last row touched, and at the
+   edges of the in-kernel dedup (K = 1, one run over all K, all sentinels,
+   int64 indices, K = 9,000 with a 40-position run and a padding row) and
+   of the access paths (16-, 8- and 4-byte rows: width 256, a row-sliced
+   base off 16 bytes), there against the plain version on the CPU and bit
+   for bit against ``proto_measure.exact_adagrad``; both wrappers under
+   ``torch.cuda.set_sync_debug_mode("error")``; then the measurement paths
+   of ``scripts/proto_merged_kernel_torch.py`` and
+   ``scripts/proto_v3_kernel_torch.py`` (one line per shape and variant,
+   each one operation per call) and each kernel's whole-call timing at the
+   RetailRocket shape;
 13. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, P1, P2).
 
@@ -745,55 +752,149 @@ def phase_learn_sr(smi_line):
     return rec
 
 
-def _proto_vs_plain(kernel, idx, g, table, acc):
+def _offset_copy(x, offset):
+    """``x`` copied into a buffer whose base lies ``offset`` elements past
+    an aligned allocation (a row-sliced table's base when ``offset`` is not
+    a multiple of 4)."""
+    import torch
+
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _proto_vs_plain(kernel, idx, g, table, acc, offset=0, plain_on_cpu=False):
     """One call of P1 or P2 (``kernel``) and one of its plain version from
-    the same inputs: table and accumulator within the scripts' rtol 1e-6 /
-    atol 1e-7 (only duplicate sums may be added in another order), rows no
-    index touches bit-identical. Returns the max abs error."""
+    the same inputs, the kernel's tables ``offset`` floats off an aligned
+    base: table and accumulator within the scripts' rtol 1e-6 / atol 1e-7,
+    rows no index touches bit-identical. The plain version runs on the card,
+    where ``index_add_`` sums duplicates with atomics in no fixed order, or
+    with ``plain_on_cpu`` on copies on the CPU, where it sums them in index
+    order as the kernel does: then the accumulator must equal the plain
+    version's bit for bit, and table and accumulator must equal
+    ``proto_measure.exact_adagrad`` bit for bit (the sum order of a stable
+    sort, a correctly rounded square root). Returns the max abs error, the
+    access width in bytes that the kernel took for its rows and, with
+    ``plain_on_cpu``, the count of table elements off the plain version's
+    (its CPU square root's last bits), else None."""
     import torch
 
     from gru4rec_tpu_torch.ops.kernels import proto_adagrad, proto_measure
 
     n, d = table.shape
+    pdev = "cpu" if plain_on_cpu else table.device
+    pidx, pg, ptable, pacc = (x.to(pdev) for x in (idx, g, table, acc))
     before = proto_adagrad.launches_by_mode[kernel]
     if kernel == "P1":
-        m_k = torch.cat([table, acc], dim=1)
-        m_p = m_k.clone()
+        m_p = torch.cat([ptable, pacc], dim=1)
+        m_k = _offset_copy(torch.cat([table, acc], dim=1), offset)
+        width = proto_adagrad.access_width(m_k)
         proto_adagrad.merged_adagrad(m_k, idx, g, proto_measure.LR)
-        proto_adagrad.merged_adagrad_plain(m_p, idx, g, proto_measure.LR)
-        pairs = [(m_k[:, :d], m_p[:, :d], table), (m_k[:, d:], m_p[:, d:], acc)]
+        proto_adagrad.merged_adagrad_plain(m_p, pidx, pg, proto_measure.LR)
+        m_k = m_k.to(pdev)
+        pairs = [(m_k[:, :d], m_p[:, :d], ptable), (m_k[:, d:], m_p[:, d:], pacc)]
     else:
-        t_k, a_k, t_p, a_p = table.clone(), acc.clone(), table.clone(), acc.clone()
+        t_k, a_k = _offset_copy(table, offset), _offset_copy(acc, offset)
+        t_p, a_p = ptable.clone(), pacc.clone()
+        width = proto_adagrad.access_width(t_k, a_k, g)
         proto_adagrad.v3_adagrad(t_k, a_k, idx, g, proto_measure.LR)
-        proto_adagrad.v3_adagrad_plain(t_p, a_p, idx, g, proto_measure.LR)
-        pairs = [(t_k, t_p, table), (a_k, a_p, acc)]
+        proto_adagrad.v3_adagrad_plain(t_p, a_p, pidx, pg, proto_measure.LR)
+        pairs = [(t_k.to(pdev), t_p, ptable), (a_k.to(pdev), a_p, pacc)]
     torch.cuda.synchronize()
     if proto_adagrad.launches_by_mode[kernel] != before + 1:
         raise AssertionError(f"{kernel} did not launch")
-    touched = torch.zeros(n, dtype=torch.bool, device=table.device)
-    touched[idx[(idx >= 0) & (idx < n)].long()] = True
+    touched = torch.zeros(n, dtype=torch.bool, device=pdev)
+    touched[pidx[(pidx >= 0) & (pidx < n)].long()] = True
     errs = []
     for name, (k, p, orig) in zip(("table", "acc"), pairs):
         errs.append(proto_measure.assert_close(f"{kernel} {name}", k, p))
         if not torch.equal(k[~touched], orig[~touched]):
             raise AssertionError(f"{kernel} changed untouched rows of {name}")
-    return max(errs)
+    if not plain_on_cpu:
+        return max(errs), width, None
+    if not torch.equal(pairs[1][0], pairs[1][1]):
+        raise AssertionError(f"{kernel} acc is not bit-equal to the CPU plain version's")
+    exact = proto_measure.exact_adagrad(ptable.numpy(), pacc.numpy(), pidx.numpy(), pg.numpy())
+    for name, (k, _, _), want in zip(("table", "acc"), pairs, exact):
+        if not np.array_equal(k.numpy(), want):
+            raise AssertionError(f"{kernel} {name}: {int((k.numpy() != want).sum())} elements "
+                                 f"not bit-equal to the exact reference")
+    return max(errs), width, int((pairs[0][0] != pairs[0][1]).sum())
+
+
+def _proto_edges(pm):
+    """The edges of P1's and P2's in-kernel dedup and access paths: (case,
+    n_rows, d, K raw indices as a numpy array, index dtype, base offset in
+    floats)."""
+    import torch
+
+    rng = np.random.RandomState(5)
+    rr = pm.draw(37120, 225, 2208, steps=1, seed=11)[0][0].cpu().numpy()
+    rr[:2] = 37119
+    return [
+        ("K=1", 1000, 225, np.array([999]), torch.int32, 0),
+        ("one run over all K", 37120, 225, np.full(2208, 7), torch.int32, 0),
+        ("all sentinels", 1000, 225, np.full(40, SENTINEL), torch.int32, 0),
+        ("int64 indices", 37120, 225, rr, torch.int64, 0),
+        ("K=9000, a 40-position run of the last row, a padding row", 37120, 225,
+         _edge_index(rng, 37120, 9000, 40), torch.int64, 0),
+        ("K=9000, a 40-position run of the last row, a padding row", 43136, 513,
+         _edge_index(rng, 43136, 9000, 40), torch.int32, 0),
+        ("even width: 16-byte accesses", 37120, 256, rr, torch.int32, 0),
+        ("row-sliced base, 4 bytes off 16", 37120, 256, rr, torch.int32, 1),
+        ("row-sliced base, 8 bytes off 16", 37120, 256, rr, torch.int32, 2),
+        ("row-sliced base, odd width", 37120, 225, rr, torch.int32, 1),
+    ]
+
+
+def _proto_no_sync(pm):
+    """P1 and P2 wrapper calls, int32 and int64 indices, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronisation."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import proto_adagrad
+
+    idx, g, table, acc = pm.draw(37120, 225, 2208, steps=1)
+    merged = torch.cat([table, acc], dim=1)
+    calls = [lambda i: proto_adagrad.merged_adagrad(merged, i, g[0], pm.LR),
+             lambda i: proto_adagrad.v3_adagrad(table, acc, i, g[0], pm.LR)]
+    for call in calls:  # the first calls load the library and size the grid
+        call(idx[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call(idx[0])
+            call(idx[0].long())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "proto_no_sync", "kernels": ["P1", "P2"], "indices": ["int32", "int64"],
+          "sync_debug_mode": "error", "passed": True})
+
+
+def _one_op(rec, where):
+    if rec["ops_per_call"] != 1:
+        raise AssertionError(f"{where}: {rec['ops_per_call']} operations per call, "
+                             f"not 1: {rec['ops_launches']}")
 
 
 def phase_proto(smi_line):
     """The adagrad prototypes P1 and P2 (``ops/kernels/proto_adagrad.py``):
     each against its plain version at a small shape and at every published
     shape of both scripts, with the last row touched twice and four
-    sentinels; one P2 wrapper call under
+    sentinels, and at the edges of their in-kernel dedup and access paths
+    (``_proto_edges``); P1 and P2 calls under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
     then both measurement paths (``scripts/proto_*_torch.py``), one line per
     shape and variant, with the launch counters set to 0 just before and
-    read just after; and, for the kernels line, each kernel's device time
-    (every operation of its wrapper but the sort), wrapper time, plain
-    version's time and byte bound over 64 back-to-back launches at the
-    RetailRocket shape (P1's draw: P1 and the port's row-sparse kernel
-    ``separate`` from P1's measurement path, P2 timed here on the same
-    inputs). Returns {kernel: timing}."""
+    read just after, every variant one operation per call; and, for the
+    kernels line, each kernel's device time per call (the whole call, one
+    operation), wrapper time, plain version's time and byte bound over 64
+    back-to-back calls at the RetailRocket shape (P1's draw: P1 and the
+    port's row-sparse kernel ``separate`` from P1's measurement path, P2
+    timed here on the same inputs). Returns {kernel: timing}."""
     import torch
 
     from gru4rec_tpu_torch.ops.kernels import proto_adagrad, proto_measure as pm
@@ -808,33 +909,45 @@ def phase_proto(smi_line):
         idx[:2] = n - 1
         idx[-4:] = SENTINEL
         for kernel in proto_adagrad.MODES:
-            e = _proto_vs_plain(kernel, idx, g, table, acc)
+            e, width, _ = _proto_vs_plain(kernel, idx, g, table, acc)
             err[kernel] = max(err[kernel], e)
             cases.append({"kernel": kernel, "shape": name, "n_rows": n, "d": d, "K": K,
-                          "pool": pool, "max_abs_err": e})
+                          "pool": pool, "access_bytes": width, "max_abs_err": e})
+    for ci, (name, n, d, raw, dtype, offset) in enumerate(_proto_edges(pm)):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(100 + ci)
+        table = torch.randn((n, d), generator=gen, device=DEVICE)
+        acc = torch.rand((n, d), generator=gen, device=DEVICE)
+        g = torch.randn((len(raw), d), generator=gen, device=DEVICE) * 0.1
+        idx = torch.from_numpy(raw.astype(np.int64)).to(DEVICE, dtype)
+        for kernel in proto_adagrad.MODES:
+            # the plain version on the CPU: a long run's atomic sum on the
+            # card lands outside the tolerance by order alone
+            e, width, off = _proto_vs_plain(kernel, idx, g, table, acc, offset,
+                                            plain_on_cpu=True)
+            err[kernel] = max(err[kernel], e)
+            cases.append({"kernel": kernel, "shape": f"edge: {name}", "n_rows": n, "d": d,
+                          "K": len(raw), "indices": str(dtype).replace("torch.", ""),
+                          "base_offset_bytes": 4 * offset, "access_bytes": width,
+                          "max_abs_err": e, "bit_equal_exact": True,
+                          "table_elems_off_plain": off})
+    widths = {(c["kernel"], c["access_bytes"]) for c in cases}
+    if not {("P1", 16), ("P1", 8), ("P1", 4), ("P2", 16), ("P2", 8), ("P2", 4)} <= widths:
+        raise AssertionError(f"an access width was not exercised: {sorted(widths)}")
     emit({"phase": "proto", "cases": cases})
-
-    idx, g, table, acc = pm.draw(37120, 225, 2208, steps=1)
-    proto_adagrad.v3_adagrad(table, acc, idx[0], g[0], pm.LR)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        proto_adagrad.v3_adagrad(table, acc, idx[0], g[0], pm.LR)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    emit({"phase": "proto_no_sync", "kernel": "P2", "sync_debug_mode": "error",
-          "passed": True})
+    _proto_no_sync(pm)
 
     proto_adagrad.reset_launches()
     merged_recs = {}
     for shape in pm.MERGED_SHAPES:
         for rec in pm.measure_merged(*shape, smi_line):
             emit({"phase": "proto_merged", **rec})
+            _one_op(rec, f"proto_merged {rec['dataset']} {rec['variant']}")
             merged_recs[rec["dataset"], rec["variant"]] = rec
     for shape in pm.V3_SHAPES:
         for rec in pm.measure_v3(*shape, smi_line):
             emit({"phase": "proto_v3", **rec})
+            _one_op(rec, f"proto_v3 {rec['shape']} {rec['variant']}")
     launches = dict(proto_adagrad.launches_by_mode)
     if not all(launches.values()):
         raise AssertionError(f"a prototype kernel was not launched: {launches}")
@@ -855,16 +968,17 @@ def phase_proto(smi_line):
     }
     out = {}
     for kernel, rec in recs.items():
+        _one_op(rec, f"proto_timing {kernel}")
         out[kernel] = {"launches": launches.get(kernel), "max_abs_err": err.get(kernel),
                        "ms": rec["kernel_us_per_launch"] / 1e3,
+                       "ops_per_call": rec["ops_per_call"],
                        "step_ms": rec["us_per_step"] / 1e3,
                        "plain_ms": pm.steps_us(plain[kernel], reps=3) / 1e3
                        if kernel in plain else None,
                        "bound_ms": rec["bound_us"] / 1e3, "bytes": rec["bytes"],
                        "device_ms_per_step": rec["device_us_per_step"] / 1e3}
     emit({"phase": "proto_timing", "shape": name, "n_rows": n, "d": d, "K": K,
-          "v3_grid": proto_adagrad.persistent_grid(torch.cuda.current_device(), d),
-          "card": smi_line, **out})
+          **pm.v3_layout(K, d, distinct), "card": smi_line, **out})
     return out
 
 

@@ -38,13 +38,14 @@
 //     every position q >= p with that row in ascending q, the order of the
 //     stable sort the first design used, so every output is bit-identical to
 //     it (the SR dither depends only on (seed, row, column)).
-//   * The dedup pass. Each block reads the K indices once, coalesced from
-//     global memory (L2 after the first blocks), kUnroll per thread at a
-//     time, and compares each with its kWarps warps' rows, held in
-//     registers. A match is rare (another position of a warp's row): below
-//     the warp's position it marks the warp as no head, above it appends the
-//     position to the warp's list in shared memory (in no order; kRunCap
-//     kept), which the head then ranks into ascending order. Slower on the
+//   * The dedup pass (csrc/dedup.cuh, shared with the adagrad prototypes).
+//     Each block reads the K indices once, coalesced from global memory (L2
+//     after the first blocks), kUnroll per thread at a time, and compares
+//     each with its kWarps warps' rows, held in registers. A match is rare
+//     (another position of a warp's row): below the warp's position it marks
+//     the warp as no head, above it appends the position to the warp's list
+//     in shared memory (in no order; kRunCap kept), which the head then
+//     ranks into ascending order. Slower on the
 //     card at the flagship shape (PERF.md): every warp scanning all K
 //     indices staged in shared memory, staging them with cp.async, loading
 //     more of them per thread at a time, and blocks of 4 or 12 warps.
@@ -87,10 +88,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <climits>
 #include <type_traits>
 
+#include "dedup.cuh"
+
 namespace {
+
+using dedup::kFull;
+using dedup::kRunCap;
 
 enum Adapt { ADAGRAD = 0, RMSPROP = 1, ADADELTA = 2, ADAM = 3 };
 
@@ -99,10 +104,8 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;              // indices a thread loads at once
 constexpr int kCols = 8;                // columns a lane owns per pass
 constexpr int kPassCols = 32 * kCols;   // columns per pass
-constexpr int kRunCap = 32;             // further positions of a run listed
 constexpr int kBatch = 2;               // gradient rows of a run read together
 constexpr int kMinBlocks = 3;           // resident blocks per SM: <= 80 registers
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Hyper {
   float lr, momentum, lmbd;
@@ -224,18 +227,9 @@ __device__ __forceinline__ void prefetch_cols(const T* row, int d, int base,
   }
 }
 
-// A raw index narrowed to int32 (as idx.to(torch.int32) does) if it names a
-// row in [0, n_rows), else -1.
-template <typename IT>
-__device__ __forceinline__ int real_row(IT raw, int n_rows) {
-  const int r = static_cast<int>(static_cast<uint32_t>(raw));
-  return (unsigned)r < (unsigned)n_rows ? r : -1;
-}
-
-// Raw index q, as real_row gives it.
+// Raw index q, as dedup::real_row gives it.
 __device__ __forceinline__ int row_at(const Args& a, int q) {
-  return a.idx64 ? real_row(static_cast<const int64_t*>(a.idx)[q], a.n_rows)
-                 : real_row(static_cast<const int32_t*>(a.idx)[q], a.n_rows);
+  return dedup::row_at(a.idx, a.idx64, q, a.n_rows);
 }
 
 // One column of the update, float32 math in registers: gc the summed
@@ -322,11 +316,7 @@ sparse_update_kernel(Args a, Hyper h) {
     r = row_at(a, p);
   }
   int v[kUnroll];
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int q = threadIdx.x + u * kThreads;
-    v[u] = q < a.K ? row_at(a, q) : -1;
-  }
+  dedup::first_round<kThreads>(v, a.idx, a.idx64, a.K, a.n_rows);
   if (lane == 0) {
     s_row[w] = r < 0 ? -2 : r;
     s_earlier[w] = 0;
@@ -360,37 +350,11 @@ sparse_update_kernel(Args a, Hyper h) {
   int rows[kWarps];
 #pragma unroll
   for (int k = 0; k < kWarps; ++k) rows[k] = s_row[k];
-  for (int q0 = threadIdx.x;;) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      bool hit = false;
-#pragma unroll
-      for (int k = 0; k < kWarps; ++k) hit |= v[u] == rows[k];
-      if (!hit) continue;
-      const int q = q0 + u * kThreads;
-#pragma unroll
-      for (int k = 0; k < kWarps; ++k) {
-        if (v[u] != rows[k] || q == p0 + k) continue;
-        if (q < p0 + k) {
-          s_earlier[k] = 1;
-        } else {
-          const int m = atomicAdd(&s_nlater[k], 1);
-          if (m < kRunCap) {
-            s_later[k][m] = q;
-            for (int c = 0; c < min(d, kPassCols); c += 32)
-              asm volatile("prefetch.global.L2 [%0];" ::"l"(a.g + (int64_t)q * d + c));
-          }
-        }
-      }
-    }
-    q0 += kUnroll * kThreads;
-    if (q0 >= a.K) break;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int q = q0 + u * kThreads;
-      v[u] = q < a.K ? row_at(a, q) : -1;
-    }
-  }
+  const dedup::Runs runs{s_earlier, s_nlater, s_later};
+  const int pf_cols = min(d, kPassCols);  // the run rows' first pass to L2
+  dedup::scan<kThreads>(v, a.idx, a.idx64, a.K, a.n_rows, [&](int x, int q) {
+    dedup::match_rows(rows, x, q, p0, runs, a.g, d, pf_cols);
+  });
   __syncthreads();
   if (r < 0 || s_earlier[w]) return;
 
@@ -398,12 +362,7 @@ sparse_update_kernel(Args a, Hyper h) {
   const int nrun = s_nlater[w];
   int myq = 0;
   if (nrun <= kRunCap) {
-    const int q = lane < nrun ? s_later[w][lane] : INT_MAX;
-    int rank = 0;
-    for (int k = 0; k < nrun; ++k) rank += __shfl_sync(kFull, q, k) < q;
-    __syncwarp();
-    if (lane < nrun) s_later[w][rank] = q;
-    __syncwarp();
+    dedup::rank_list(s_later[w], nrun, lane);
     myq = s_later[w][lane];
   }
 
@@ -436,16 +395,12 @@ sparse_update_kernel(Args a, Hyper h) {
           }
       }
     } else {  // more further positions than listed: walk the indices again
-      for (int q0 = p + 1; q0 < a.K; q0 += 32) {
-        const int q = q0 + lane;
-        const int rq = q < a.K ? row_at(a, q) : -1;
-        for (uint32_t m = __ballot_sync(kFull, rq == r); m; m &= m - 1) {
-          float y[kCols] = {};
-          load_cols<VEC>(a.g + (int64_t)(q0 + __ffs(m) - 1) * d, d, base, lane, y);
+      dedup::for_each_later(a.idx, a.idx64, a.K, a.n_rows, p, r, lane, [&](int q) {
+        float y[kCols] = {};
+        load_cols<VEC>(a.g + (int64_t)q * d, d, base, lane, y);
 #pragma unroll
-          for (int i = 0; i < kCols; ++i) gs[i] += y[i];
-        }
-      }
+        for (int i = 0; i < kCols; ++i) gs[i] += y[i];
+      });
     }
 
 #pragma unroll

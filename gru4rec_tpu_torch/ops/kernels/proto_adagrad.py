@@ -6,18 +6,27 @@ float32 tables (per distinct row, with ``g`` its summed duplicate gradient
 rows: ``a += g * g; t -= lr * g / sqrt(a + eps)``):
 
 * P1 ``merged_adagrad`` (``scripts/proto_merged_kernel.py:31``): table and
-  accumulator in one (n, 2d) buffer whose row is ``[t | a]``;
+  accumulator in one (n, 2d) buffer whose row is ``[t | a]``; one warp per
+  raw position stages its row's contiguous ``[t | a]`` span in shared
+  memory in the widest access the alignment allows;
 * P2 ``v3_adagrad`` (``scripts/proto_v3_kernel.py:63``): separate (n, d)
-  table and accumulator; a memset and a small kernel list the real rows and
-  count them on the device, then the persistent blocks of one launch loop
-  over that list through a depth-4 ``cp.async`` ring.
+  table and accumulator; each block finds the heads of its own tile of raw
+  positions and its warps loop over only those, through a ``cp.async``
+  ring of shared-memory slots.
 
-No package entry point calls them; their path is the measurement of
-``ops/kernels/proto_measure.py`` (``scripts/proto_*_torch.py``). The
-wrappers issue no host synchronisation: they stable-sort the indices with
-``torch.sort`` and launch on the current stream. Indices outside
-[0, n_rows) (the int32-max sentinel of masked lanes) are dropped; every
-row up to ``n_rows - 1`` is updated.
+Both are bound by bytes (the source's header). A call is one device
+operation: the kernel takes the raw int32 or int64 indices (no sort, cast,
+fill or scratch tensor) and dedups them itself with the row-sparse
+kernel's pass (``csrc/dedup.cuh``), summing each row's duplicate gradient
+rows in ascending raw position, the order of a stable sort, so the results
+equal ``proto_measure.exact_adagrad`` bit for bit. The wrappers allocate
+nothing, issue no host synchronisation and launch on the current stream;
+they pick each access's width from the
+tensors' pitches and pointers (:func:`access_width`). Indices outside
+[0, n_rows) (the int32-max sentinel of masked lanes) are dropped; every row
+up to ``n_rows - 1`` is updated. No package entry point calls them; their
+path is the measurement of ``ops/kernels/proto_measure.py``
+(``scripts/proto_*_torch.py``).
 
 Tensors on the CPU take the plain versions, :func:`merged_adagrad_plain`
 and :func:`v3_adagrad_plain` (torch ops: dedup with ``index_add_``, then
@@ -51,19 +60,24 @@ def _lib():
     lib = load("proto_adagrad")
     if lib.gru4rec_merged_adagrad.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gru4rec_merged_adagrad.argtypes = [p, p, p, i, p, i, i, f, f, p]
-        lib.gru4rec_v3_adagrad.argtypes = [p, p, p, i, p, p, p, p, i, i, i, f, f, p]
+        lib.gru4rec_merged_adagrad.argtypes = [p, p, i, i, p, i, i, i, i, f, f, p]
+        lib.gru4rec_v3_adagrad.argtypes = [p, p, i, i, p, p, i, i, i, i, f, f, p]
         lib.gru4rec_v3_blocks_per_sm.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        lib.gru4rec_v3_tile.argtypes = [i, i]
+        lib.gru4rec_v3_warps.argtypes = []
         for fn in (lib.gru4rec_merged_adagrad, lib.gru4rec_v3_adagrad,
-                   lib.gru4rec_v3_blocks_per_sm):
+                   lib.gru4rec_v3_blocks_per_sm, lib.gru4rec_v3_tile,
+                   lib.gru4rec_v3_warps):
             fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def persistent_grid(device_index: int, d: int) -> int:
-    """P2's persistent grid at width ``d``, derived once per card and width:
-    the blocks resident on one SM at once, times ``multi_processor_count``."""
+    """P2's grid capacity at width ``d``, derived once per card and width:
+    the blocks resident on one SM at once (at most the kernel's
+    ``kMaxBlocksPerSM``), times ``multi_processor_count``. One wave of
+    that many blocks covers a call (:func:`v3_tile`)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = _lib().gru4rec_v3_blocks_per_sm(d, ctypes.byref(blocks))
@@ -71,6 +85,30 @@ def persistent_grid(device_index: int, d: int) -> int:
         raise RuntimeError(f"v3_adagrad cannot run at width {d}: CUDA error {err}, "
                            f"{blocks.value} blocks per SM")
     return blocks.value * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def v3_tile(K: int, grid: int) -> int:
+    """P2's raw positions per block for K positions on a grid capacity of
+    ``grid`` blocks (the kernel's rule); the launch has ceil(K / tile)
+    blocks."""
+    return _lib().gru4rec_v3_tile(K, grid)
+
+
+def v3_warps() -> int:
+    """P2's warps per block."""
+    return _lib().gru4rec_v3_warps()
+
+
+def access_width(*tensors) -> int:
+    """The widest access, 16, 8 or 4 bytes, that every row pitch and base
+    pointer of these 2-D float32 tensors allows: the kernels then copy and
+    store each row in accesses of that width with every row start aligned,
+    so no row needs a peeled head or tail."""
+    for w in (16, 8):
+        if all(t.shape[-1] * t.element_size() % w == 0 and t.data_ptr() % w == 0
+               for t in tensors):
+            return w
+    return 4
 
 
 def _check(tables, idx, g, d):
@@ -133,14 +171,14 @@ def v3_adagrad_plain(table, acc, idx, g, lr):
     return table, acc
 
 
-def _sorted(idx):
-    return torch.sort(idx.to(torch.int32), stable=True)
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def merged_adagrad(merged, idx, g, lr):
     """P1: adagrad on the merged (n, 2d) float32 buffer ``[t | a]`` at the K
-    (possibly duplicated, sentinel-masked) indices ``idx`` with gradient
-    rows ``g`` (K, d), in place. Returns ``merged``."""
+    (possibly duplicated, sentinel-masked) int32 or int64 indices ``idx``
+    with gradient rows ``g`` (K, d), in place. Returns ``merged``."""
     if not _on_card(merged):
         return merged_adagrad_plain(merged, idx, g, lr)
     n, d2 = merged.shape
@@ -150,10 +188,10 @@ def merged_adagrad(merged, idx, g, lr):
     K = idx.shape[0]
     if K == 0:
         return merged
-    sidx, order = _sorted(idx)
     err = _lib().gru4rec_merged_adagrad(
-        g.data_ptr(), sidx.data_ptr(), order.data_ptr(), K, merged.data_ptr(), n,
-        d2 // 2, lr, EPSILON, torch.cuda.current_stream(merged.device).cuda_stream)
+        g.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), K,
+        merged.data_ptr(), n, d2 // 2, access_width(merged), access_width(g), lr,
+        EPSILON, _stream(merged))
     if err != 0:
         raise RuntimeError(f"merged_adagrad kernel launch failed: CUDA error {err}")
     launches_by_mode["P1"] += 1
@@ -161,9 +199,9 @@ def merged_adagrad(merged, idx, g, lr):
 
 
 def v3_adagrad(table, acc, idx, g, lr):
-    """P2: adagrad on ``table`` and ``acc`` (n, d) float32 at the K indices
-    ``idx`` with gradient rows ``g`` (K, d), in place; the count of real rows
-    stays on the device. Returns ``(table, acc)``."""
+    """P2: adagrad on ``table`` and ``acc`` (n, d) float32 at the K int32 or
+    int64 indices ``idx`` with gradient rows ``g`` (K, d), in place.
+    Returns ``(table, acc)``."""
     if not _on_card(table):
         return v3_adagrad_plain(table, acc, idx, g, lr)
     n, d = table.shape
@@ -173,14 +211,11 @@ def v3_adagrad(table, acc, idx, g, lr):
     K = idx.shape[0]
     if K == 0:
         return table, acc
-    sidx, order = _sorted(idx)
-    items = torch.empty(K, 8, dtype=torch.int32, device=table.device)  # csrc Item
-    n_real = torch.empty(1, dtype=torch.int32, device=table.device)
+    tile = v3_tile(K, persistent_grid(table.device.index, d))
     err = _lib().gru4rec_v3_adagrad(
-        g.data_ptr(), sidx.data_ptr(), order.data_ptr(), K, items.data_ptr(),
-        n_real.data_ptr(), table.data_ptr(), acc.data_ptr(), n, d,
-        persistent_grid(table.device.index, d), lr, EPSILON,
-        torch.cuda.current_stream(table.device).cuda_stream)
+        g.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), K,
+        table.data_ptr(), acc.data_ptr(), n, d, access_width(table, acc, g), tile, lr,
+        EPSILON, _stream(table))
     if err != 0:
         raise RuntimeError(f"v3_adagrad kernel launch failed: CUDA error {err}")
     launches_by_mode["P2"] += 1

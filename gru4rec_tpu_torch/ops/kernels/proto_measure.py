@@ -4,27 +4,29 @@ PyTorch counterparts of ``scripts/proto_merged_kernel.py`` (P1 "merged"
 against "separate") and ``scripts/proto_v3_kernel.py`` (P2 "v3" against
 "v2"), at those scripts' own shapes and index draws. The baseline of both
 is the port's row-sparse kernel, ``sparse_update.fused_update`` with
-adagrad, momentum 0, no L2 and a float32 accumulator: the redesigned,
-sort-free kernel, one device operation per call. P1 and P2 keep the
-``torch.sort`` feed that stands for the scripts' ``group_pack``, so since
-that redesign a comparison of "separate" with "merged" or of "v2" with
-"v3" sets two designs of the dedup against each other as well as the
-layouts or loops the scripts asked about: it is no longer like for like.
+adagrad, momentum 0, no L2 and a float32 accumulator. All four variants
+are sort-free and one device operation per call: each kernel dedups the
+raw indices itself in the same way (the head of a run sums its gradient
+rows in ascending raw position). So "separate" against "merged" compares
+only the two layouts (two rows against one contiguous ``[t | a]`` span),
+and "v2" against "v3" only a grid over all K positions against a loop over
+the real rows: the comparisons are like for like.
 Each variant runs ``STEPS`` updates back to back on the stream (the card's
-counterpart of the scripts' ``lax.scan``); a step is the wrapper call, sort
-or prep plus kernel for P1 and P2, the one kernel for the baseline.
+counterpart of the scripts' ``lax.scan``); a step is one wrapper call.
 ``us_per_step`` is the median over ``REPS`` runs of CUDA events around the
 ``STEPS`` steps; one more run under ``torch.profiler``, after a warm-up
-run, gives the device time per launch of every operation the kernel
-wrapper issues besides P1's and P2's sort (for P2 a memset, the record
-kernel and the loop kernel), a mean over the launches the tracer recorded.
+run, gives the device time per call of the variant's one kernel
+(``KERNEL_NAMES``), a mean over the launches the tracer recorded, and
+raises if any other operation ran once per call.
 Data is made on the card from a seeded ``torch.Generator`` (rees46's 64
 gradient steps are 332 MB). A measurement needs a CUDA device and raises
 without one.
 
 Run through ``scripts/proto_merged_kernel_torch.py`` and
 ``scripts/proto_v3_kernel_torch.py``, or ``chip_smoke.py``'s ``proto``
-phase.
+phase; ``scripts/sparse_update_timing_torch.py --source proto_adagrad``
+times the whole call of P1 and P2 in any checkout and in build variants.
+``exact_adagrad`` gives the kernels' results bit for bit.
 """
 
 from __future__ import annotations
@@ -56,13 +58,12 @@ V3_SHAPES = (("rees46", 200064, 513, 2528, 1500), ("diginetica", 43136, 513, 230
              ("yoochoose", 37120, 481, 2144, 1700),
              ("uniform-distinct", 200064, 513, 2528, 2500))
 
-# every device operation a variant's kernel wrapper issues besides P1's and
-# P2's sort feed, by a substring of its name in the profiler's trace, the
-# kernel first; "separate" and "v2" (the row-sparse kernel) issue nothing else
+# the one device operation of each variant's call, by a substring of its
+# name in the profiler's trace; every variant is sort-free, so the profiler
+# must see no other operation once per call
 KERNEL_NAMES = {"separate": ("sparse_update_kernel",), "v2": ("sparse_update_kernel",),
-                "merged": ("merged_adagrad_kernel",),
-                "v3": ("v3_adagrad_kernel", "v3_items_kernel", "Memset")}
-SORT_FREE = ("separate", "v2")  # whose trace must hold KERNEL_NAMES alone
+                "merged": ("merged_adagrad_kernel",), "v3": ("v3_adagrad_kernel",)}
+SORT_FREE = tuple(KERNEL_NAMES)  # whose trace must hold KERNEL_NAMES alone
 
 
 def nvidia_smi_line() -> str:
@@ -206,6 +207,27 @@ def kernel_us(times, names, launches, exclusive=False):
     return us
 
 
+def exact_adagrad(table, acc, idx, g, lr=LR):
+    """What P1 and P2 compute, bit for bit, in numpy float32: new (table,
+    acc) arrays after one update of the numpy arrays given. Each distinct
+    real row's gradient rows are summed from 0 in ascending raw position
+    (``np.add.at``), then ``a += g * g; t -= lr * (g / sqrt(a + eps))``,
+    each operation rounded once and the square root correctly, as the
+    kernels' ``sqrtf`` is. PyTorch's CPU float32 ``sqrt`` need not be
+    correctly rounded, so the torch-op plain versions may differ from this
+    in the last bit of the table (never of the accumulator)."""
+    t, a = table.copy(), acc.copy()
+    idx = np.asarray(idx).astype(np.int64)
+    keep = (idx >= 0) & (idx < t.shape[0])
+    rows, inv = np.unique(idx[keep], return_inverse=True)
+    gs = np.zeros((rows.size, t.shape[1]), np.float32)
+    np.add.at(gs, inv, g[keep])
+    an = a[rows] + gs * gs
+    t[rows] = t[rows] - np.float32(lr) * (gs / np.sqrt(an + np.float32(sparse_update.EPSILON)))
+    a[rows] = an
+    return t, a
+
+
 def assert_close(name, got, want):
     """The scripts' check: rtol 1e-6 / atol 1e-7; returns the max abs error."""
     err = (got - want).abs()
@@ -218,10 +240,10 @@ def assert_close(name, got, want):
 
 def record(head, variant, step, distinct, d, card):
     """``head`` (the script's keys before ``variant``) plus this variant's
-    times, its bound and the card: ``kernel_us_per_launch`` sums every
-    device operation of the kernel wrapper but P1's and P2's sort
-    (``KERNEL_NAMES``; for the row-sparse kernel the whole call),
-    ``ops_per_call`` counts the distinct operations of a step,
+    times, its bound and the card: ``kernel_us_per_launch`` is the device
+    time of the whole call, the variant's one kernel (``KERNEL_NAMES``;
+    ``kernel_us`` raises if any other operation ran once per call),
+    ``ops_per_call`` counts the distinct operations of a step (1),
     ``ops_us_per_step`` gives each by name."""
     times = device_times(step)
     bus, nbytes = bound_us(head["K"], d, distinct)
@@ -233,6 +255,20 @@ def record(head, variant, step, distinct, d, card):
             "ops_us_per_step": {k[:60]: v[0] / STEPS for k, v in times.items()},
             "ops_launches": {k[:60]: v[1] for k, v in times.items()},
             "bound_us": bus, "bytes": nbytes, "card": card}
+
+
+def v3_layout(K, d, distinct):
+    """P2's launch at K positions and width ``d`` on this card: its grid
+    capacity ``v3_grid``, the raw positions per block ``v3_tile``, the
+    blocks launched, and the mean distinct rows (``distinct``) per block
+    and per warp."""
+    grid = proto_adagrad.persistent_grid(torch.cuda.current_device(), d)
+    tile = proto_adagrad.v3_tile(K, grid)
+    blocks = -(-K // tile)
+    rows = float(np.mean(distinct))
+    return {"v3_grid": grid, "v3_tile": tile, "v3_blocks": blocks,
+            "v3_items_per_block": rows / blocks,
+            "v3_items_per_warp": rows / (blocks * proto_adagrad.v3_warps())}
 
 
 def measure_merged(name, n_rows, d, K, card):
@@ -276,9 +312,8 @@ def measure_v3(name, n_rows, d, K, pool, card):
     assert_close("v3 acc", a3, a2)
 
     distinct = distinct_rows(idx, n_rows)
-    grid = proto_adagrad.persistent_grid(torch.cuda.current_device(), d)
     head = {"shape": name, "K": K, "pool": pool, "n_rows": n_rows, "d": d,
-            "v3_grid": grid, "v3_items_per_block": float(np.mean(distinct)) / grid}
+            **v3_layout(K, d, distinct)}
     return [
         record(head, "v2",
                 lambda s: sparse_update.fused_update(opt, t2, idx[s], g[s], st),

@@ -6,11 +6,12 @@ shapes (diginetica, rees46, yoochoose, retailrocket) and index draw (K
 uniform indices below ``n_rows - 8``), 64 steps back to back per variant
 (``gru4rec_tpu_torch/ops/kernels/proto_measure.py``). Prints the card's
 ``nvidia-smi`` name and power limit, then one JSON line per shape and
-variant: ``shape``, ``K``, ``variant``, ``us_per_step`` (CUDA events; for
-"merged" sort plus kernel, for "separate" the sort-free kernel alone),
-``kernel_us_per_launch`` (``torch.profiler``, the sort left out),
-``ops_per_call`` and the byte bound. "separate" dedups in the kernel and
-"merged" keeps the sort feed, so the two differ in more than the layout.
+variant: ``shape``, ``K``, ``variant``, ``us_per_step`` (CUDA events, the
+wrapper's call), ``kernel_us_per_launch`` (``torch.profiler``: the device
+time of the whole call, one operation), ``ops_per_call`` (1) and the byte
+bound. Both variants are sort-free and dedup the raw indices in the kernel
+the same way, so the two differ only in the layout: two rows of 4d bytes,
+or one contiguous span of 8d bytes per distinct row.
 Needs one CUDA device; run from the root of a checkout:
 
     python3 scripts/proto_merged_kernel_torch.py

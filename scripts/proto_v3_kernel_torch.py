@@ -7,13 +7,13 @@ indices drawn from a pool of distinct rows below ``n_rows - 8``), 64 steps
 back to back per variant (``gru4rec_tpu_torch/ops/kernels/proto_measure.py``).
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per shape and variant: ``shape``, ``K``, ``pool``, ``variant``,
-``us_per_step`` (CUDA events; for "v3" sort, prep and kernel, for "v2" the
-sort-free kernel alone), ``kernel_us_per_launch`` (``torch.profiler``:
-every device operation of the kernel wrapper but P2's sort, for "v3" its
-memset, record kernel and loop kernel), ``ops_per_call``, the persistent
-grid of "v3" and the byte bound. "v2" dedups in the kernel and "v3" keeps
-the sort feed, so the two differ in more than P2's loop. Needs one CUDA
-device; run from the root of a checkout:
+``us_per_step`` (CUDA events, the wrapper's call), ``kernel_us_per_launch``
+(``torch.profiler``: the device time of the whole call, one operation),
+``ops_per_call`` (1), P2's launch (``v3_grid``, ``v3_tile``, ``v3_blocks``,
+rows per block and per warp) and the byte bound. Both variants are
+sort-free and dedup the raw indices in the kernel the same way, so the two
+differ only in a grid over all K positions against a loop over the real
+rows. Needs one CUDA device; run from the root of a checkout:
 
     python3 scripts/proto_v3_kernel_torch.py
 """
