@@ -64,7 +64,25 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``scripts/proto_v3_kernel_torch.py`` (one line per shape and variant,
    each one operation per call) and each kernel's whole-call timing at the
    RetailRocket shape;
-13. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+13. serve   — serving on the train phase's fitted flagship model after
+   ``scripts/measure_serving.py``: ``predict_topk`` (k = 20) at batch 1, 64
+   and 256 (warm median ms per call, device ms per call, events/s),
+   ``predict_next_batch`` once at batch 512; top-k against the full score
+   frame, a changed session's lane against a fresh lane, and
+   ``cast_for_serving("bfloat16")``;
+14. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
+   ``loadmodel`` on the card (archive bytes, save and load seconds; equal
+   top-k scores bit for bit), then ``fit(retrain=True)`` of the loaded
+   model on data with 500 unseen items (the tables grow; K1 once per step);
+15. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
+   a run resumed from a training checkpoint against two uninterrupted runs
+   (``resume_diff <= repeat_diff``), with a ``profile_dir`` trace; in-fit
+   validation with ``early_stop_patience`` and ``keep_best``;
+16. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
+   flagship trained, saved and evaluated from TSV files, the archive
+   loaded and evaluated to the same ``PRIMARY METRIC:``, and a NaN run
+   that exits 2;
+17. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -76,9 +94,13 @@ prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import os
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,16 +174,18 @@ def markov(n_sessions, n_items=60, seed=0):
     return pd.DataFrame(rows, columns=["SessionId", "ItemId", "Time"])
 
 
-def flagship_cfg(**kw):
-    from gru4rec_tpu_torch import GRU4RecConfig
-
-    args = dict(loss="bpr-max", final_act="elu-0.5", hidden_act="tanh",
+# bench.py::_flagship_cfg, cut to one epoch
+FLAGSHIP = dict(loss="bpr-max", final_act="elu-0.5", hidden_act="tanh",
                 layers=[224], batch_size=80, n_sample=2048, sample_alpha=0.4,
                 bpreg=1.95, learning_rate=0.05, momentum=0.4,
                 dropout_p_embed=0.0, dropout_p_hidden=0.0,
                 constrained_embedding=True, n_epochs=1, chunk_size=512)
-    args.update(kw)
-    return GRU4RecConfig(**args)
+
+
+def flagship_cfg(**kw):
+    from gru4rec_tpu_torch import GRU4RecConfig
+
+    return GRU4RecConfig(**{**FLAGSHIP, **kw})
 
 
 def rsc15_cfg(**kw):
@@ -577,7 +601,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
     """``GRU4Rec.fit`` for one epoch then ``evaluate``, with the kernel's
     launch counters set to 0 just before and read just after. ``per_step``
     = {mode: launches per step} that the path must show (every other mode
-    none). Returns the phase's JSON record."""
+    none). Returns the phase's JSON record and the fitted model."""
     import torch
 
     from gru4rec_tpu_torch import GRU4Rec, evaluate
@@ -622,16 +646,17 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
               "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
               "launches": by_mode, "card": smi_line}
     emit(record)
-    return record
+    return record, model
 
 
 def phase_train(smi_line):
-    """The flagship (K1 on Wy, once per step)."""
+    """The flagship (K1 on Wy, once per step). Returns the record and the
+    fitted model, which the serve and checkpoint phases use."""
     train, test = synth_split()
-    rec = _train("train", flagship_cfg(), train, test, smi_line, {"K1": 1})
+    rec, model = _train("train", flagship_cfg(), train, test, smi_line, {"K1": 1})
     if rec["n_items"] != N_ITEMS:
         raise AssertionError(f"catalog is {rec['n_items']} items, not {N_ITEMS}")
-    return rec
+    return rec, model
 
 
 def phase_train_sr_control(smi_line):
@@ -645,7 +670,7 @@ def phase_train_sr_control(smi_line):
     sr_active = Optimizer.sr_active
     Optimizer.sr_active = lambda self, st: False
     try:
-        rec = _train("train_sr_control", flagship_cfg(opt_state_dtype="bfloat16_sr"),
+        rec, _ = _train("train_sr_control", flagship_cfg(opt_state_dtype="bfloat16_sr"),
                      train, test, smi_line, {"K1": 1})
     finally:
         Optimizer.sr_active = sr_active
@@ -664,7 +689,7 @@ def phase_train_sr(smi_line, ref, control):
     limit, since round-to-nearest drops the small increments of large
     sums."""
     train, test = synth_split()
-    rec = _train("train_sr", flagship_cfg(opt_state_dtype="bfloat16_sr"), train, test,
+    rec, _ = _train("train_sr", flagship_cfg(opt_state_dtype="bfloat16_sr"), train, test,
                  smi_line, {"K2": 1})
 
     def rel(a, b):
@@ -700,14 +725,14 @@ def phase_train_adam_sr(smi_line):
     rate of 0.001: at the flagship's 0.05 it does not learn (PERF.md)."""
     train, test = synth_split()
     cfg = flagship_cfg(adapt="adam", learning_rate=0.001, opt_state_dtype="bfloat16_sr")
-    return _train("train_adam_sr", cfg, train, test, smi_line, {"K3": 1})
+    return _train("train_adam_sr", cfg, train, test, smi_line, {"K3": 1})[0]
 
 
 def phase_train_onehot(smi_line):
     """Path B: param_samples/rsc15_bpr-max.py on RSC15-shaped sessions (K4 on
     the 300-wide Wx0, K1 on the 128-wide Wy, each once per step)."""
     train, test = synth_split(seed=1, n_items=RSC15_ITEMS, mean_len=RSC15_MEAN_SESSION_LEN)
-    rec = _train("train_onehot", rsc15_cfg(), train, test, smi_line, {"K4": 1, "K1": 1})
+    rec, _ = _train("train_onehot", rsc15_cfg(), train, test, smi_line, {"K4": 1, "K1": 1})
     n_pad = rec["tables"]["Wy"][0]
     if rec["n_items"] != RSC15_ITEMS or rec["tables"]["Wx0"] != [n_pad, 300] or \
             rec["tables"]["Wy"] != [n_pad, 128]:
@@ -743,7 +768,7 @@ def learn_sr_cfg():
 
 def phase_learn_sr(smi_line):
     """adam + SR state (K3 on E and Wy, twice per step): recall@1 >= 0.9."""
-    rec = _train("learn_sr", learn_sr_cfg(), markov(800), markov(100, seed=5), smi_line,
+    rec, _ = _train("learn_sr", learn_sr_cfg(), markov(800), markov(100, seed=5), smi_line,
                  {"K3": 2})
     if rec["tables"]["E"][1] != 12 or rec["opt_state"]["E"]["acc2"] != "bfloat16":
         raise AssertionError(f"unexpected E table / state {rec['tables']} {rec['opt_state']}")
@@ -982,6 +1007,355 @@ def phase_proto(smi_line):
     return out
 
 
+# --------------------------------------------------------------------- #
+# serving, checkpoints, resume and the CLI (scripts/measure_serving.py's
+# protocol for the serving numbers)
+SERVE_K = 20
+SERVE_BATCHES = (1, 64, 256)
+SERVE_REPS = 50
+RETRAIN_NEW_ITEMS = 500
+RETRAIN_EVENTS = 20_000
+_SESSION_IDS = itertools.count(10**9, 10**6)
+
+
+def _fresh_sessions(batch):
+    """Session ids that no lane has seen: every lane starts fresh."""
+    return next(_SESSION_IDS) + np.arange(batch)
+
+
+def _serving_twin(model):
+    """A second model holding copies of ``model``'s weights and catalog."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.models.gru import map_params
+
+    twin = GRU4Rec(model.config, device=DEVICE)
+    twin.params = map_params(torch.clone, model.params)
+    twin.itemidmap, twin.n_items = model.itemidmap, model.n_items
+    return twin
+
+
+def phase_serve(model, smi_line):
+    """Serving on the train phase's fitted flagship model (36,968 items,
+    GRU-224, constrained embedding), after ``scripts/measure_serving.py``:
+    ``predict_topk`` at k = 20 and batch 1, 64 and 256 — the warm median
+    host ms per call (a call ends with the host fetch of its ids and
+    scores), the device ms per call (``torch.profiler``: every operation of
+    the call, summed over the calls the tracer kept, per call) and events/s
+    over the timed calls; ``predict_next_batch`` once at batch 512. Checks:
+    the top-k ids are the argsort of ``predict_next_batch``'s scores where
+    the scores are distinct; a lane whose session changed scores as a fresh
+    lane does; ``cast_for_serving("bfloat16")`` gives finite scores."""
+    from gru4rec_tpu_torch.ops.kernels.proto_measure import device_times
+
+    t_phase = time.time()
+    rng = np.random.RandomState(0)
+    n = model.n_items
+    # requests carry ids of the catalog's own dtype (int64 here), as in
+    # scripts/measure_serving.py: an object array would take pandas' slow
+    # lookup path (scripts/profile_torch_serving.py --id-dtype object)
+    catalog = model.itemidmap.index.values
+    vocab = np.asarray(catalog, dtype=object)
+
+    def items(batch):
+        return catalog[rng.randint(0, n, batch)]
+
+    out = {"phase": "serve", "n_items": n, "k": SERVE_K, "reps": SERVE_REPS}
+    for batch in SERVE_BATCHES:
+        sess = _fresh_sessions(batch)
+        calls = [items(batch) for _ in range(SERVE_REPS)]
+        model.predict_topk(sess, calls[-1], k=SERVE_K, batch=batch)  # warm-up
+        wall = []
+        for x in calls:
+            t0 = time.perf_counter()
+            model.predict_topk(sess, x, k=SERVE_K, batch=batch)
+            wall.append(time.perf_counter() - t0)
+        dev = device_times(
+            lambda s: model.predict_topk(sess, calls[s], k=SERVE_K, batch=batch),
+            steps=SERVE_REPS)
+        ms = float(np.median(wall)) * 1e3
+        device_ms = sum(v[0] for v in dev.values()) / SERVE_REPS / 1e3
+        out[f"topk_batch{batch}"] = {
+            "ms": ms, "device_ms": device_ms, "device_share": device_ms / ms,
+            "events_per_s": batch * SERVE_REPS / sum(wall), "device_ops": len(dev)}
+    sess, x = _fresh_sessions(512), items(512)
+    model.predict_next_batch(sess, x, batch=512)  # warm-up at this width
+    t0 = time.perf_counter()
+    model.predict_next_batch(sess, items(512), batch=512)
+    out["next_batch_batch512_ms"] = (time.perf_counter() - t0) * 1e3
+
+    # top-k against the full score frame, both from fresh lanes
+    B = 64
+    x = items(B)
+    scores = model.predict_next_batch(_fresh_sessions(B), x, batch=B).values.T
+    ids, sc = model.predict_topk(_fresh_sessions(B), x, k=SERVE_K, batch=B)
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :SERVE_K]
+    want = np.take_along_axis(scores, order, axis=1)
+    # ids are compared where a score is apart from its neighbours by more
+    # than the tolerance (torch.topk may order ties either way)
+    gaps = np.diff(want, axis=1)
+    apart = gaps < -(ATOL_F32 + RTOL_F32 * np.abs(want[:, 1:]))
+    distinct = np.ones(want.shape, dtype=bool)
+    distinct[:, 1:] &= apart
+    distinct[:, :-1] &= apart
+    out["topk_vs_frame"] = {"max_abs_err": float(np.abs(sc - want).max()),
+                            "distinct_share": float(distinct.mean())}
+    if not (np.allclose(sc, want, rtol=RTOL_F32, atol=ATOL_F32) and distinct.any()
+            and np.array_equal(ids[distinct], vocab[order][distinct])):
+        raise AssertionError(f"predict_topk disagrees with predict_next_batch: "
+                             f"{out['topk_vs_frame']}")
+
+    # a changed session resets its lane only
+    s1, x1, x2 = _fresh_sessions(B), items(B), items(B)
+    model.predict_next_batch(s1, x1, batch=B)
+    s2 = s1.copy()
+    s2[5] = _fresh_sessions(1)[0]
+    cont = model.predict_next_batch(s2, x2, batch=B).values
+    fresh = model.predict_next_batch(_fresh_sessions(B), x2, batch=B).values
+    out["lane_reset"] = {"changed_lane_err": float(np.abs(cont[:, 5] - fresh[:, 5]).max()),
+                         "kept_lane_diff": float(np.abs(cont[:, 0] - fresh[:, 0]).max())}
+    if not (np.allclose(cont[:, 5], fresh[:, 5], rtol=RTOL_F32, atol=ATOL_F32)
+            and not np.allclose(cont[:, 0], fresh[:, 0], rtol=RTOL_F32, atol=ATOL_F32)):
+        raise AssertionError(f"lane reset: {out['lane_reset']}")
+
+    # bfloat16 serving weights, on a copy
+    cast = _serving_twin(model).cast_for_serving("bfloat16")
+    x = items(B)
+    ids_b, sc_b = cast.predict_topk(_fresh_sessions(B), x, k=SERVE_K, batch=B)
+    ids_f, sc_f = model.predict_topk(_fresh_sessions(B), x, k=SERVE_K, batch=B)
+    out["bfloat16"] = {"Wy_dtype": str(cast.params["Wy"].dtype).replace("torch.", ""),
+                       "finite": bool(np.isfinite(sc_b).all()),
+                       "top1_agree": float(np.mean(ids_b[:, 0] == ids_f[:, 0])),
+                       "max_rel_diff_top1": float(np.max(np.abs(sc_b[:, 0] - sc_f[:, 0])
+                                                         / np.abs(sc_f[:, 0])))}
+    if not out["bfloat16"]["finite"] or out["bfloat16"]["Wy_dtype"] != "bfloat16":
+        raise AssertionError(f"bfloat16 serving: {out['bfloat16']}")
+    out.update(seconds=time.time() - t_phase, card=smi_line)
+    emit(out)
+
+
+def _retrain_split(train):
+    """The first ``RETRAIN_EVENTS`` training events, with
+    ``RETRAIN_NEW_ITEMS`` of their items renamed to ids the catalog lacks."""
+    part = train.iloc[:RETRAIN_EVENTS].copy()
+    vals = part["ItemId"].values.copy()
+    chosen = np.sort(np.random.RandomState(2).choice(
+        np.unique(vals), size=RETRAIN_NEW_ITEMS, replace=False))
+    hit = np.isin(vals, chosen)
+    vals[hit] = N_ITEMS + np.searchsorted(chosen, vals[hit])
+    part["ItemId"] = vals
+    return part
+
+
+def phase_checkpoint(model, smi_line):
+    """``savemodel(include_optimizer=True)`` of the train phase's flagship
+    model, ``loadmodel`` on the card: the ``predict_topk`` scores of both
+    from fresh lanes equal bit for bit, and the optimizer leaves too; then
+    ``fit(retrain=True)`` of the loaded model for one epoch on training
+    data with ``RETRAIN_NEW_ITEMS`` unseen items: the tables grow, K1
+    launches once per step (counts set to 0 just before, read just after),
+    the weights stay finite."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.io.checkpoint import flatten_opt_state
+    from gru4rec_tpu_torch.models.gru import pad_items
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.npz")
+        t0 = time.perf_counter()
+        model.savemodel(path, include_optimizer=True)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = GRU4Rec.loadmodel(path, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    x = model.itemidmap.index.values[np.random.RandomState(3).randint(0, model.n_items, 64)]
+    sess = _fresh_sessions(64)
+    ids_a, sc_a = model.predict_topk(sess, x, k=SERVE_K, batch=64)
+    ids_b, sc_b = loaded.predict_topk(sess, x, k=SERVE_K, batch=64)
+    scores_equal = (np.array_equal(sc_a.view(np.uint32), sc_b.view(np.uint32))
+                    and np.array_equal(ids_a, ids_b))
+    leaves = list(zip(flatten_opt_state(model._train_state.opt_state),
+                      flatten_opt_state(loaded._train_state.opt_state)))
+    leaves_equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in leaves)
+    if not (scores_equal and leaves_equal and loaded._train_state.step
+            == model._train_state.step):
+        raise AssertionError(f"the reloaded model differs: scores equal {scores_equal}, "
+                             f"optimizer leaves equal {leaves_equal}")
+
+    train, _ = synth_split()
+    data = _retrain_split(train)
+    rows_before = loaded.params["Wy"].shape[0]
+    sparse_update.reset_launches()
+    loaded.fit(data, retrain=True, n_epochs=1)
+    torch.cuda.synchronize()
+    by_mode = dict(sparse_update.launches_by_mode)
+    steps = loaded.epoch_stats[-1]["steps"]
+    n_total = N_ITEMS + RETRAIN_NEW_ITEMS
+    rows = pad_items(n_total, loaded.config.item_pad_multiple)
+    acc = loaded._train_state.opt_state["sparse"]["Wy"]["acc"]
+    out = {"phase": "checkpoint", "archive_bytes": nbytes, "save_s": save_s,
+           "load_s": load_s, "opt_leaves": len(leaves), "topk_bit_equal": scores_equal,
+           "retrain": {"events": len(data), "new_items": RETRAIN_NEW_ITEMS,
+                       "n_items": loaded.n_items, "Wy_rows": [rows_before, rows],
+                       "steps": steps, "loss": loaded.epoch_stats[-1]["loss"],
+                       "launches": by_mode},
+           "seconds": time.time() - t_phase, "card": smi_line}
+    emit(out)
+    if not (loaded.n_items == n_total and loaded.params["Wy"].shape[0] == rows > rows_before
+            and acc.shape[0] == rows):
+        raise AssertionError(f"the tables did not grow to {n_total} items: {out['retrain']}")
+    if by_mode != {m: (steps if m == "K1" else 0) for m in sparse_update.MODES}:
+        raise AssertionError(f"retrain launched {by_mode} over {steps} steps")
+    if not (bool(torch.isfinite(loaded.params["Wy"]).all())
+            and math.isfinite(loaded.epoch_stats[-1]["loss"])):
+        raise AssertionError("retrain left non-finite weights")
+
+
+def resume_cfg():
+    """The verify recipe's markov drive with adagrad and ``bfloat16_sr``
+    state (K2 on Wy), three epochs: a run resumed after the first profiles
+    its second epoch, the third."""
+    from gru4rec_tpu_torch import GRU4RecConfig
+
+    return GRU4RecConfig(loss="bpr-max", layers=[64], batch_size=32, n_sample=64,
+                         n_epochs=3, constrained_embedding=True, adapt="adagrad",
+                         opt_state_dtype="bfloat16_sr")
+
+
+def _max_diff(a, b):
+    """The largest absolute difference between the tensors of two trees
+    (dicts and lists of tensors) of the same layout."""
+    from gru4rec_tpu_torch.io.checkpoint import flatten_opt_state
+
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(flatten_opt_state(a), flatten_opt_state(b)))
+
+
+def _state(model):
+    """A model's parameters and optimizer state, as one tree."""
+    return [model.params, model._train_state.opt_state]
+
+
+def phase_resume(smi_line):
+    """Exact resume across a training checkpoint, on the markov chain with
+    SR state (K2): two uninterrupted runs (their difference is
+    ``repeat_diff``), one epoch with ``checkpoint_every=1`` then
+    ``resume=`` for the rest, which also writes a ``profile_dir`` trace
+    (its difference from the uninterrupted run is ``resume_diff``; K2
+    launches once per resumed step); ``resume_diff <= repeat_diff``. Then
+    ``eval_data`` with ``early_stop_patience`` and ``keep_best``: the kept
+    parameters equal those of the best epoch's run."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    t_phase = time.time()
+    train, valid = markov(800), markov(100, seed=5)
+
+    def run(**kw):
+        return GRU4Rec(resume_cfg(), device=DEVICE).fit(train, **kw)
+
+    straight = [run(), run()]
+    repeat_diff = _max_diff(*map(_state, straight))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, prof = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "profile")
+        first = run(n_epochs=1, checkpoint_every=1, checkpoint_path=ck)
+        sparse_update.reset_launches()
+        resumed = run(resume=ck, profile_dir=prof)
+        torch.cuda.synchronize()
+        by_mode = dict(sparse_update.launches_by_mode)
+        traces = {f: os.path.getsize(os.path.join(prof, f)) for f in os.listdir(prof)}
+    resume_diff = _max_diff(_state(resumed), _state(straight[0]))
+    steps = sum(e["steps"] for e in resumed.epoch_stats)
+
+    kept = run(eval_data=valid, eval_metric="mrr", early_stop_patience=1, keep_best=True)
+    mrrs = [v["mrr"] for v in kept.valid_stats]
+    best = 1 + int(np.argmax(mrrs))  # the first of equal scores, as fit() keeps
+    ref = {1: first, 2: run(n_epochs=2), 3: straight[0]}[best]
+    keep_diff = _max_diff(kept.params, ref.params)
+    out = {"phase": "resume", "repeat_diff": repeat_diff, "resume_diff": resume_diff,
+           "losses": [e["loss"] for e in straight[0].epoch_stats],
+           "resumed_losses": [e["loss"] for e in resumed.epoch_stats],
+           "resumed_steps": steps, "launches": by_mode, "trace_bytes": traces,
+           "valid_mrr": mrrs, "best_epoch": best, "keep_best_diff": keep_diff,
+           "seconds": time.time() - t_phase, "card": smi_line}
+    emit(out)
+    if by_mode != {m: (steps if m == "K2" else 0) for m in sparse_update.MODES}:
+        raise AssertionError(f"the resumed run launched {by_mode} over {steps} steps")
+    if not resume_diff <= repeat_diff:
+        raise AssertionError(f"resume_diff {resume_diff} > repeat_diff {repeat_diff}")
+    if list(traces) != ["trace_epoch3.json"] or not all(traces.values()):
+        raise AssertionError(f"profile_dir holds {traces}")
+    if not (kept.valid_stats and keep_diff <= repeat_diff):
+        raise AssertionError(f"keep_best kept parameters {keep_diff} off epoch {best}'s")
+
+
+def _param_string(params):
+    return ",".join(f"{k}={'/'.join(map(str, v)) if isinstance(v, list) else v}"
+                    for k, v in params.items())
+
+
+def _cli(args, env):
+    """``python -m gru4rec_tpu_torch.cli.run`` in a subprocess from the
+    checkout's root: (result, seconds, PRIMARY METRIC or None)."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "gru4rec_tpu_torch.cli.run", *args],
+                         capture_output=True, text=True, timeout=600, env=env,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    pm = [ln for ln in res.stdout.splitlines() if ln.startswith("PRIMARY METRIC:")]
+    return res, time.time() - t0, (float(pm[-1].split(":")[1]) if pm else None)
+
+
+def phase_cli(smi_line):
+    """The CLI on the card, as subprocesses: the flagship parameter string
+    on the flagship split written to TSV, training, saving and evaluating
+    (``-s model.npz -t test.tsv -m 1 5 20 -lpm``); ``-l model.npz`` on the
+    archive, which must print the same ``PRIMARY METRIC:``; a markov run
+    with ``learning_rate=nan``, which must exit 2 and dump its state to
+    ``GRU4REC_TPU_NAN_DUMP`` (a temporary path, so nothing lands in the
+    working directory)."""
+    t_phase = time.time()
+    train, test = synth_split()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_p, test_p, markov_p, model_p, dump = (
+            os.path.join(tmp, f) for f in ("train.tsv", "test.tsv", "markov.tsv",
+                                           "model.npz", "nan_dump.npz"))
+        train.to_csv(train_p, sep="\t", index=False)
+        test.to_csv(test_p, sep="\t", index=False)
+        markov(800).to_csv(markov_p, sep="\t", index=False)
+        env = {**os.environ, "GRU4REC_TPU_NAN_DUMP": dump}
+        fit, fit_s, fit_pm = _cli([train_p, "-ps", _param_string(FLAGSHIP), "-s", model_p,
+                                   "-t", test_p, "-m", "1", "5", "20", "-lpm"], env)
+        load, load_s, load_pm = _cli([model_p, "-l", "-t", test_p, "-m", "1", "5", "20",
+                                      "-lpm"], env)
+        nan, nan_s, _ = _cli([markov_p, "-ps", "loss=bpr-max,layers=64,batch_size=32,"
+                              "n_sample=64,n_epochs=1,constrained_embedding=True,"
+                              "learning_rate=nan"], env)
+        dumped = os.path.exists(dump)
+    out = {"phase": "cli", "train_rc": fit.returncode, "train_s": fit_s,
+           "train_primary_metric": fit_pm, "load_rc": load.returncode, "load_s": load_s,
+           "load_primary_metric": load_pm, "nan_rc": nan.returncode, "nan_s": nan_s,
+           "nan_dumped": dumped, "seconds": time.time() - t_phase, "card": smi_line}
+    emit(out)
+    for name, res, rc in (("train", fit, 0), ("load", load, 0), ("nan", nan, 2)):
+        if res.returncode != rc:
+            raise AssertionError(f"cli {name} exited {res.returncode}, not {rc}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    if fit_pm is None or fit_pm != load_pm:
+        raise AssertionError(f"PRIMARY METRIC {fit_pm} after training, {load_pm} loaded")
+    if not dumped or "training diverged" not in nan.stdout:
+        raise AssertionError(f"the NaN run did not report or dump:\n{nan.stdout[-3000:]}")
+    if os.path.exists("gru4rec_nan_dump.npz"):
+        raise AssertionError("a NaN dump landed in the working directory")
+
+
 # the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
@@ -1010,7 +1384,8 @@ def main() -> int:
     phase_kernel()
     timing = phase_kernel_timing()
     phase_reference()
-    paths = {"train": phase_train(smi_line)}
+    paths = {}
+    paths["train"], flagship = phase_train(smi_line)
     control = phase_train_sr_control(smi_line)
     paths["train_sr"] = phase_train_sr(smi_line, paths["train"], control)
     paths["train_adam_sr"] = phase_train_adam_sr(smi_line)
@@ -1018,6 +1393,10 @@ def main() -> int:
     phase_learn()
     paths["learn_sr"] = phase_learn_sr(smi_line)
     proto = phase_proto(smi_line)
+    phase_serve(flagship, smi_line)
+    phase_checkpoint(flagship, smi_line)
+    phase_resume(smi_line)
+    phase_cli(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{

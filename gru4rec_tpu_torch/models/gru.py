@@ -107,13 +107,17 @@ def init_params_numpy(cfg: GRU4RecConfig, n_items: int) -> Dict:
     return params
 
 
+def map_params(fn, params: Dict) -> Dict:
+    """A parameter dict with ``fn`` applied to every array (the per-layer
+    lists stay lists)."""
+    return {k: ([fn(a) for a in v] if isinstance(v, list) else fn(v))
+            for k, v in params.items()}
+
+
 def init_params(cfg: GRU4RecConfig, n_items: int, device) -> Dict:
     """:func:`init_params_numpy`, as tensors on ``device``."""
-    def put(a):
-        return torch.from_numpy(a).to(device)
-
-    return {k: ([put(a) for a in v] if isinstance(v, list) else put(v))
-            for k, v in init_params_numpy(cfg, n_items).items()}
+    return map_params(lambda a: torch.from_numpy(a).to(device),
+                      init_params_numpy(cfg, n_items))
 
 
 def init_hidden(cfg: GRU4RecConfig, batch_size: int, device) -> List[torch.Tensor]:
@@ -136,10 +140,15 @@ def make_mm(cfg: GRU4RecConfig):
     bfloat16 (one more rounding than JAX), so the operands are rounded to
     the compute dtype, widened back, and multiplied in float32: the products
     of two bfloat16 values are exact in float32. Float32 products must run
-    in full float32 on the card (TF32 off, which ``GRU4Rec`` sets)."""
+    in full float32 on the card (TF32 off, which ``GRU4Rec`` sets); weights
+    cast to bfloat16 for serving (``GRU4Rec.cast_for_serving``) are widened
+    to float32 first, as JAX's ``astype(compute_dtype)`` does."""
     cdt = torch_dtype(cfg.compute_dtype)
     if cdt == torch.float32:
-        return torch.matmul
+        def mm32(a, b):
+            return torch.matmul(a.float(), b.float())
+
+        return mm32
 
     def mm(a, b):
         return torch.matmul(a.to(cdt).float(), b.to(cdt).float())

@@ -1,15 +1,17 @@
-"""The user-facing GRU4Rec model: construction and ``fit``.
+"""The user-facing GRU4Rec model: fit / predict / save / load.
 
 PyTorch counterpart of ``gru4rec_tpu/models/gru4rec.py`` (reference:
-gru4rec.py:27-781). The same constructor keyword set and ``set_params``
+gru4rec.py:27-781): the same constructor keyword set and ``set_params``
 string coercion; ``fit(data)`` trains on one device through
-``train/step.py``; ``evaluate`` (``eval/evaluation.py``) reads the trained
-``params``. Serving (``predict_next_batch`` / ``predict_topk``) and
-checkpoints are not ported yet; ``fit``'s resume, retrain, checkpoint,
-profile, mesh and in-fit validation options raise ``NotImplementedError``.
-All three input modes train (constrained, embedding, one-hot), under every
-``opt_state_dtype``, including ``"bfloat16_sr"`` (stochastically rounded
-bfloat16 item-table state, ``ops/sr.py``).
+``train/step.py``, with JAX's options (in-fit validation with early
+stopping and ``keep_best``, training checkpoints and exact resume,
+``retrain`` over a grown catalog, a profiler trace, the per-chunk NaN
+abort with a state dump); stateful serving through ``predict_next_batch``
+and ``predict_topk``; ``cast_for_serving``; ``savemodel`` / ``loadmodel``
+(``io/checkpoint.py``, archives shared with the JAX package). All three
+input modes train, under every ``opt_state_dtype``, including
+``"bfloat16_sr"``. Only ``mesh=`` (multi-device) is not ported and raises
+``NotImplementedError``.
 
 The model runs on the card (``device=None`` means ``"cuda"``) unless the
 caller asks for the CPU with ``device="cpu"``; asking for CUDA where there
@@ -18,6 +20,9 @@ is none raises.
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import os
 import time
 from typing import Optional
 
@@ -29,9 +34,15 @@ from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.data.loader import apply_itemidmap, build_itemidmap
 from gru4rec_tpu_torch.data.scheduler import build_schedule, session_order
 from gru4rec_tpu_torch.data.tools import compute_offset, sort_if_needed
+from gru4rec_tpu_torch.eval.evaluation import evaluate
+from gru4rec_tpu_torch.io.checkpoint import (_is_primary_process, load_model,
+                                             load_train_checkpoint, save_model,
+                                             save_train_checkpoint)
 from gru4rec_tpu_torch.models import gru
 from gru4rec_tpu_torch.ops.sampling import build_alias_table, popularity_cdf
-from gru4rec_tpu_torch.train.step import init_train_state, make_chunk_fn
+from gru4rec_tpu_torch.train.step import (TrainState, init_opt_state, init_train_state,
+                                          make_chunk_fn, make_generator)
+from gru4rec_tpu_torch.utils.logging import get_logger
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,6 +65,32 @@ def _not_ported(name: str):
     raise NotImplementedError(f"{name} is not ported to gru4rec_tpu_torch yet")
 
 
+class _LaggedLoss:
+    """Per-chunk loss sums read back two chunks late: each chunk's sum is
+    copied to host memory behind its own event, so reading chunk ``ci - 2``
+    after dispatching chunk ``ci`` waits for that copy only, never for the
+    chunks in flight (the JAX package reads a finished array the same way,
+    gru4rec.py:413-424)."""
+
+    def __init__(self, n_chunks: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host = torch.empty(n_chunks, dtype=torch.float32, pin_memory=self.cuda)
+        self.events = []
+
+    def push(self, loss: torch.Tensor) -> None:
+        self.host[len(self.events)].copy_(loss, non_blocking=True)
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        self.events.append(ev)
+
+    def is_nan(self, ci: int) -> bool:
+        if self.events[ci] is not None:
+            self.events[ci].synchronize()
+        return math.isnan(float(self.host[ci]))
+
+
 class GRU4Rec:
     """GRU4Rec session-based recommender on PyTorch."""
 
@@ -68,8 +105,12 @@ class GRU4Rec:
         self.params = None
         self.n_items = 0
         self.itemidmap: Optional[pd.Series] = None
+        self.H = None
         self.error_during_train = False
         self._train_state = None
+        self._predict_batch = None
+        self._current_session = None
+        self._completed_epochs = 0
 
     def set_params(self, **kwargs):
         self.config.set_params(**kwargs)
@@ -78,8 +119,6 @@ class GRU4Rec:
     def __getattr__(self, name):
         # reference-style attribute access (gru.layers, gru.loss, ...) is
         # forwarded for config fields only
-        import dataclasses
-
         cfg = object.__getattribute__(self, "config")
         if name in {f.name for f in dataclasses.fields(cfg)}:
             return getattr(cfg, name)
@@ -93,28 +132,81 @@ class GRU4Rec:
             retrain: bool = False, checkpoint_every: int = 0,
             checkpoint_path: Optional[str] = None, resume: Optional[str] = None,
             profile_dir: Optional[str] = None, mesh=None,
-            eval_data: Optional[pd.DataFrame] = None):
-        """Train the network (reference: gru4rec.py:515-664).
+            eval_data: Optional[pd.DataFrame] = None, eval_every: int = 1,
+            eval_cutoff: int = 20, eval_batch_size: int = 512,
+            eval_mode: str = "standard", eval_metric: str = "recall",
+            early_stop_patience: int = 0, keep_best: bool = True):
+        """Train the network (reference: gru4rec.py:515-664); the JAX
+        package's options, ``gru4rec_tpu/models/gru4rec.py:184-543``.
 
-        ``sample_store``/``store_type`` are accepted for API parity; negatives
-        are drawn on the device, one block per chunk of ``chunk_size``
-        steps. Per-epoch ``{loss, seconds, steps, events}`` go to
-        ``self.epoch_stats``; a NaN epoch loss aborts training and marks the
-        model unusable (``error_during_train``)."""
-        for name, val in (("retrain", retrain), ("checkpoint_every", checkpoint_every),
-                          ("checkpoint_path", checkpoint_path), ("resume", resume),
-                          ("profile_dir", profile_dir), ("mesh", mesh),
-                          ("eval_data", eval_data)):
-            if isinstance(val, pd.DataFrame) or val not in (None, False, 0):
-                _not_ported(f"fit({name}=...)")
+        ``sample_store``/``store_type`` are accepted for API parity;
+        negatives are drawn on the device, one block per chunk of
+        ``chunk_size`` steps. Per-epoch ``{loss, seconds, steps, events}``
+        go to ``self.epoch_stats``.
+
+        * ``retrain=True`` continues training a fitted (or loaded) model on
+          new data, growing the item tables for unseen items.
+        * ``checkpoint_every=k`` with ``checkpoint_path`` saves a training
+          checkpoint every k epochs; ``resume=path`` continues from one with
+          the archive's config (exactly for the port's own archives on the
+          same device type, ``io/checkpoint.py``).
+        * ``profile_dir`` writes a ``torch.profiler`` Chrome trace of the
+          second epoch into that directory.
+        * ``eval_data`` evaluates the held-out set every ``eval_every``
+          epochs (Recall/MRR@``eval_cutoff``, ``eval_mode`` ties) into
+          ``self.valid_stats``; ``early_stop_patience=k`` stops after k
+          evaluations without improvement of ``eval_metric`` ("recall" or
+          "mrr"), and ``keep_best`` restores the parameters of the best
+          evaluation at the end.
+        * A NaN loss aborts training (checked per chunk, two chunks behind,
+          and per epoch), marks the model unusable (``error_during_train``)
+          and dumps the state (:meth:`_dump_nan_state`).
+        """
+        if mesh is not None:
+            _not_ported("fit(mesh=...)")
         cfg = self.config
         dev = self.device
+        # invalidate the serving lane state: fit() ends by pointing self.H
+        # at the training hidden state (cfg.batch_size lanes), which a later
+        # predict call of that width must not continue from
+        self._current_session = None
+        self._predict_batch = None
+        self._completed_epochs = 0  # resume= overrides with the saved epoch
         self.error_during_train = False
         self.epoch_stats = []  # per-epoch {loss, seconds, steps, events}
-        item_key, session_key, time_key = cfg.item_key, cfg.session_key, cfg.time_key
+        self.valid_stats = []  # per-eval {epoch, recall, mrr}
+        best_metric, best_params, stale = -np.inf, None, 0
+        logger = get_logger()
 
-        self.itemidmap = build_itemidmap(data, item_key)
-        self.n_items = len(self.itemidmap)
+        start_epoch = 0
+        resumed_state = None
+        if resume is not None:
+            resumed_state, start_epoch = load_train_checkpoint(resume, self)
+            # everything below is built from the archive's config
+            cfg = self.config
+            print(f"Resuming training from {resume} at epoch {start_epoch + 1}")
+            self._completed_epochs = start_epoch
+            retrain = False
+        item_key, session_key, time_key = cfg.item_key, cfg.session_key, cfg.time_key
+        if retrain:
+            if self.params is None:
+                raise ValueError("retrain=True requires a previously trained model")
+            if self.params["Wy"].dtype != torch.float32:
+                # cast_for_serving narrowed the masters; training on them
+                # would silently freeze (config.py's param_dtype guard)
+                raise NotImplementedError(
+                    "retrain requires float32 master weights, but this "
+                    f"model's parameters are {self.params['Wy'].dtype} (cast "
+                    "for serving?). Reload the float32 checkpoint to retrain."
+                )
+            new_items = data[item_key].unique()
+            unseen = new_items[~np.isin(new_items, self.itemidmap.index.values)]
+            if len(unseen):
+                print(f"Extending item tables with {len(unseen)} new items")
+                self._extend_items(unseen)
+        elif resume is None:
+            self.itemidmap = build_itemidmap(data, item_key)
+            self.n_items = len(self.itemidmap)
         data = apply_itemidmap(data, self.itemidmap, item_key)
         sort_if_needed(data, [session_key, time_key])
         offsets = compute_offset(data, session_key)
@@ -135,7 +227,25 @@ class GRU4Rec:
         else:
             samp1 = torch.zeros((1,), dtype=torch.float32, device=dev)
 
-        state = init_train_state(cfg, self.n_items, dev)
+        if resumed_state is not None:
+            state = resumed_state
+        elif retrain:
+            if self._train_state is not None:
+                prev = self._train_state
+                opt_state, gen, step = prev.opt_state, prev.gen, prev.step
+            else:
+                # a model loaded without optimizer entries: fresh
+                # accumulators over the existing weights (a warm restart;
+                # savemodel(include_optimizer=True) archives restore the
+                # real state, io/checkpoint.py)
+                print("retrain: no optimizer state on the model — "
+                      "reinitializing accumulators")
+                opt_state = init_opt_state(cfg, self.params)
+                gen, step = make_generator(cfg.seed, dev), 0
+            state = TrainState(self.params, opt_state,
+                               gru.init_hidden(cfg, cfg.batch_size, dev), gen, step)
+        else:
+            state = init_train_state(cfg, self.n_items, dev)
         chunk_fn = make_chunk_fn(cfg, self.n_items)
 
         base_order = session_order(data, session_key, time_key, cfg.time_sort,
@@ -144,11 +254,16 @@ class GRU4Rec:
         C = cfg.chunk_size
         epochs = cfg.n_epochs if n_epochs is None else n_epochs
         sched = None
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
+            # the first epoch of a run pays the kernels' build
+            prof = (_start_profile(dev)
+                    if profile_dir is not None and epoch == start_epoch + 1 else None)
             t0 = time.time()
             state.H = gru.init_hidden(cfg, cfg.batch_size, dev)
             if cfg.train_random_order:
-                # each epoch's permutation is a pure function of (seed, epoch)
+                # each epoch's permutation is a pure function of (seed,
+                # epoch), so a resumed run replays the orders of an
+                # uninterrupted one
                 order = np.random.default_rng(
                     (cfg.seed, epoch)).permutation(len(offsets) - 1)
                 sched = build_schedule(data_items, offsets, order, cfg.batch_size,
@@ -160,31 +275,329 @@ class GRU4Rec:
                                        require_two_lanes=(cfg.n_sample == 0))
             T = sched.n_steps
             loss_parts, total_events = [], 0
-            for t0c in range(0, T, C):
+            lagged = _LaggedLoss(-(-T // C), dev)
+            for ci, t0c in enumerate(range(0, T, C)):
                 t1c = min(t0c + C, T)
                 ls, ec = chunk_fn(
                     state, sched.in_idx[t0c:t1c], sched.out_idx[t0c:t1c],
                     sched.valid[t0c:t1c], sched.reset[t0c:t1c], samp1, logp0,
                 )
                 loss_parts.append(ls)
+                lagged.push(ls)
                 total_events += ec
+                # fail fast on divergence (the reference aborts per step,
+                # gru4rec.py:626-629): the sum of a chunk two dispatches
+                # behind, which never waits on the chunks in flight
+                if ci >= 2 and lagged.is_nan(ci - 2):
+                    _stop_profile(prof, profile_dir, epoch)
+                    return self._nan_abort(state, epoch, checkpoint_path, chunk=ci - 2)
             total_loss = float(torch.stack(loss_parts).sum()) if loss_parts else 0.0
+            _stop_profile(prof, profile_dir, epoch)
             avgc = total_loss / max(total_events, 1.0)
             if np.isnan(avgc):
-                # the reference aborts on a NaN cost (gru4rec.py:626-629)
-                print(f"Epoch {epoch}: NaN error!")
-                self.error_during_train = True
-                self._train_state = state
-                self.params = state.params
-                return self
+                return self._nan_abort(state, epoch, checkpoint_path)
             dt = time.time() - t0
             self.epoch_stats.append(
                 {"loss": avgc, "seconds": dt, "steps": T, "events": total_events})
+            # cumulative across resumes: save_checkpoint() stores this
+            self._completed_epochs = epoch + 1
+            logger.log("epoch", epoch=epoch + 1, loss=avgc, seconds=dt, steps=T,
+                       events=total_events, mb_per_s=T / dt, e_per_s=total_events / dt)
             print(
                 "Epoch{} --> loss: {:.6f} \t({:.2f}s) \t[{:.2f} mb/s | {:.0f} e/s]".format(
                     epoch + 1, avgc, dt, T / dt, total_events / dt
                 )
             )
+            if eval_data is not None and (epoch + 1) % max(eval_every, 1) == 0:
+                # self.params points at the live parameters only for the
+                # duration of the call
+                prev_params = self.params
+                self.params = state.params
+                try:
+                    rec, mrr = evaluate(
+                        self, eval_data, cut_off=[eval_cutoff],
+                        batch_size=eval_batch_size, mode=eval_mode,
+                        session_key=session_key, item_key=item_key,
+                        time_key=time_key,
+                    )
+                finally:
+                    self.params = prev_params
+                metric = rec[0] if eval_metric == "recall" else mrr[0]
+                self.valid_stats.append(
+                    {"epoch": epoch + 1, "recall": rec[0], "mrr": mrr[0]})
+                logger.log("valid", epoch=epoch + 1, recall=rec[0], mrr=mrr[0])
+                print("Validation Recall@{}: {:.6f} MRR@{}: {:.6f}".format(
+                    eval_cutoff, rec[0], eval_cutoff, mrr[0]))
+                if metric > best_metric:
+                    best_metric, stale = metric, 0
+                    if keep_best:
+                        # the updates run in place: a snapshot must be a
+                        # copy, or it would follow the later epochs
+                        best_params = gru.map_params(torch.clone, state.params)
+                else:
+                    stale += 1
+                    if early_stop_patience and stale >= early_stop_patience:
+                        print(
+                            f"Early stopping at epoch {epoch + 1} (no "
+                            f"{eval_metric} improvement in {stale} evaluations)"
+                        )
+                        break
+            if checkpoint_every and checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+                self._train_state = state
+                self.params = state.params
+                save_train_checkpoint(self, state, epoch + 1, checkpoint_path)
+                if _is_primary_process():
+                    print(f"Checkpoint saved to {checkpoint_path} "
+                          f"(epoch {epoch + 1})")
+        if best_params is not None:
+            # keep_best: serve/save the best-validation parameters (the
+            # optimizer state stays at the last epoch)
+            state.params = best_params
         self._train_state = state
         self.params = state.params
+        self.H = state.H
         return self
+
+    # ------------------------------------------------------------------ #
+    def _nan_abort(self, state, epoch, checkpoint_path, chunk=None):
+        print(f"Epoch {epoch}: NaN error!")
+        get_logger().log("nan_abort", epoch=epoch,
+                         **({} if chunk is None else {"chunk": chunk}))
+        self.error_during_train = True
+        self._dump_nan_state(state, epoch, checkpoint_path)
+        return self
+
+    def _dump_nan_state(self, state, epoch, checkpoint_path) -> None:
+        """Best-effort diagnostic dump on a NaN abort: a training checkpoint
+        of the live state (up to two chunks past the first NaN chunk), so
+        the divergence can be replayed offline. Never masks the abort: a
+        failure here is reported, not raised.
+
+        Path: ``<checkpoint_path>.nan.npz`` when checkpointing is configured,
+        else ``$GRU4REC_TPU_NAN_DUMP`` (empty disables the dump), else
+        ``gru4rec_nan_dump.npz`` in the working directory."""
+        path = (f"{checkpoint_path}.nan.npz" if checkpoint_path
+                else os.environ.get("GRU4REC_TPU_NAN_DUMP", "gru4rec_nan_dump.npz"))
+        if not path:
+            return
+        try:
+            save_train_checkpoint(self, state, epoch, path)
+            if _is_primary_process():
+                print(f"NaN abort: diverged training state dumped to {path}")
+        except Exception as e:  # noqa: BLE001 — diagnostic only
+            print(f"NaN abort: state dump failed ({e!r})")
+
+    # ------------------------------------------------------------------ #
+    def _extend_items(self, unseen_ids) -> None:
+        """Grow every item-dimensioned table and its optimizer state for new
+        items seen at retrain time (reference extend_weights,
+        gru4rec.py:261-266): new rows drawn with the Glorot width over rows +
+        cols + n_new from ``RandomState(seed + 7)`` (the JAX package's
+        draws, bit for bit); optimizer-state rows zero in each slot's own
+        dtype. The tables are new tensors; the training state is rebuilt
+        around them."""
+        cfg = self.config
+        n_old = self.n_items
+        n_new = len(unseen_ids)
+        n_total = n_old + n_new
+        rng = np.random.RandomState(cfg.seed + 7)
+        new_pad = gru.pad_items(n_total, cfg.item_pad_multiple)
+
+        def new_rows(n_cols):
+            sigma = cfg.sigma if cfg.sigma != 0 else np.sqrt(6.0 / (n_old + n_cols + n_new))
+            if cfg.init_as_normal:
+                m = rng.randn(n_new, n_cols) * sigma
+            else:
+                m = rng.rand(n_new, n_cols) * sigma * 2 - sigma
+            return m.astype(cfg.param_dtype)
+
+        def extend(table, rows=None):
+            """``table``'s first n_old rows, then ``rows`` (zeros if None),
+            then zero padding to the new layout."""
+            new = (torch.zeros((n_new,) + table.shape[1:], dtype=table.dtype)
+                   if rows is None else torch.from_numpy(rows).to(table.dtype))
+            pad = torch.zeros((new_pad - n_total,) + table.shape[1:], dtype=table.dtype)
+            return torch.cat([table[:n_old], new.to(table.device),
+                              pad.to(table.device)])
+
+        params = dict(self.params)
+        mode = gru.input_mode(cfg)
+        # Wy carries the folded bias at column h + padding: [glorot(h) | zeros]
+        h_last = cfg.layers[-1]
+        wy_cols = params["Wy"].shape[1]
+        params["Wy"] = extend(params["Wy"], np.concatenate(
+            [new_rows(h_last), np.zeros((n_new, wy_cols - h_last), dtype=cfg.param_dtype)],
+            axis=1))
+        if mode == "embedding":
+            params["E"] = extend(params["E"], new_rows(params["E"].shape[1]))
+        if mode == "onehot":
+            params["Wx"] = ([extend(params["Wx"][0], new_rows(params["Wx"][0].shape[1]))]
+                            + list(params["Wx"][1:]))
+        self.params = params
+
+        if self._train_state is not None:
+            opt_state = dict(self._train_state.opt_state)
+            opt_state["sparse"] = {name: {k: extend(a) for k, a in st.items()}
+                                   for name, st in opt_state["sparse"].items()}
+            self._train_state = dataclasses.replace(
+                self._train_state, params=params, opt_state=opt_state)
+        new_map = pd.Series(
+            data=np.arange(n_old, n_total, dtype=np.int64), index=unseen_ids
+        )
+        self.itemidmap = pd.concat([self.itemidmap, new_map])
+        self.n_items = n_total
+
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, fname: str) -> None:
+        """Save a full training checkpoint (parameters, optimizer state,
+        generator state, step and the cumulative epoch count) for exact
+        resume."""
+        if self._train_state is None:
+            raise ValueError("no training state to checkpoint")
+        save_train_checkpoint(self, self._train_state, self._completed_epochs, fname)
+
+    # ------------------------------------------------------------------ #
+    def _build_predict_fn(self, subset: bool):
+        """``predict_step(params, H, in_idx, item_idx=None) -> (H_new,
+        scores)``: one serving step, scoring the full catalog (sliced to
+        ``n_items``) or, with ``subset``, the rows ``item_idx``."""
+        cfg = self.config
+        mode = gru.input_mode(cfg)
+        n_items = self.n_items
+
+        @torch.no_grad()
+        def predict_step(params, H, in_idx, item_idx=None):
+            if mode == "constrained":
+                srows = {"WyS": params["Wy"][in_idx]}
+            elif mode == "embedding":
+                srows = {"E": params["E"][in_idx]}
+            else:
+                srows = {"Wx0": params["Wx"][0][in_idx]}
+            if subset:
+                srows["Wy"] = params["Wy"][item_idx]
+                return gru.forward(params, srows, list(H), cfg, M=in_idx.shape[0],
+                                   training=False, full_catalog=False)
+            n_pad = params["Wy"].shape[0]
+            item_valid = torch.arange(n_pad, device=in_idx.device) < n_items
+            H_new, yhat = gru.forward(params, srows, list(H), cfg, M=in_idx.shape[0],
+                                      training=False, full_catalog=True,
+                                      item_valid=item_valid)
+            return H_new, yhat[:, :n_items]
+
+        return predict_step
+
+    def _ensure_lanes(self, batch: int) -> None:
+        """Fresh lanes when the lane width changes or after fit(): ONLY a
+        width change resets the persistent lane state (reference: reset on
+        batch change, gru4rec.py:691-711), not a changed
+        ``predict_for_item_ids``, which evaluate_sessions_batch varies every
+        step mid-session."""
+        if self._predict_batch != batch or self._current_session is None:
+            self.H = gru.init_hidden(self.config, batch, self.device)
+            self._current_session = np.ones(batch) * -1
+            self._predict_batch = batch
+
+    def _reset_changed_lanes(self, session_ids) -> None:
+        """Zero the hidden lanes whose session changed since the last predict
+        call and record the new session map (reference: gru4rec.py:712-716)."""
+        session_ids = np.asarray(session_ids)
+        changed = session_ids != self._current_session
+        if changed.any():
+            keep = torch.from_numpy(~changed).to(self.device)[:, None]
+            self.H = [h * keep for h in self.H]
+            self._current_session = session_ids.copy()
+
+    def _item_indices(self, item_ids) -> torch.Tensor:
+        return torch.from_numpy(
+            self.itemidmap[item_ids].values.astype(np.int64)).to(self.device)
+
+    def predict_next_batch(self, session_ids, input_item_ids,
+                           predict_for_item_ids=None, batch: int = 100):
+        """Stateful batch prediction (reference: gru4rec.py:665-728): hidden
+        state persists across calls per lane; lanes whose session ID changed
+        are reset. Returns a DataFrame of scores, items x events."""
+        if self.error_during_train:
+            raise Exception("Training ended with an error; model is unusable.")
+        subset = predict_for_item_ids is not None
+        self._ensure_lanes(batch)
+        self._reset_changed_lanes(session_ids)
+        in_idx = self._item_indices(input_item_ids)
+        step = self._build_predict_fn(subset)
+        if subset:
+            self.H, preds = step(self.params, self.H, in_idx,
+                                 self._item_indices(predict_for_item_ids))
+            index = predict_for_item_ids
+        else:
+            self.H, preds = step(self.params, self.H, in_idx)
+            index = self.itemidmap.index
+        return pd.DataFrame(data=preds.cpu().numpy().T, index=index)
+
+    def predict_topk(self, session_ids, input_item_ids, k: int = 20,
+                     batch: int = 100, mesh=None):
+        """Top-k recommendation on the device (``torch.topk`` over the
+        catalog scores): only k ids and scores per lane cross back to the
+        host. Same stateful lanes as :meth:`predict_next_batch` (the two
+        share them). Returns ``(items, scores)``: an object array (batch, k)
+        of raw item IDs, best first, and a float array (batch, k).
+        ``mesh=`` (multi-device serving) is not ported."""
+        if self.error_during_train:
+            raise Exception("Training ended with an error; model is unusable.")
+        k = min(int(k), self.n_items)
+        if mesh is not None:
+            _not_ported("predict_topk(mesh=...)")
+        self._ensure_lanes(batch)
+        self._reset_changed_lanes(session_ids)
+        self.H, yhat = self._build_predict_fn(False)(
+            self.params, self.H, self._item_indices(input_item_ids))
+        scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
+        idx = idx.cpu().numpy()
+        # Arrow-backed string indexes (pandas>=3) reject 2-D fancy indexing:
+        # take the batch x k ids flat, as objects (only those, not the whole
+        # catalog per call)
+        items = np.asarray(self.itemidmap.index[idx.ravel()], dtype=object)
+        return items.reshape(idx.shape), scores.cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    def cast_for_serving(self, dtype="bfloat16") -> "GRU4Rec":
+        """Cast the parameters to a narrower serving dtype in place and
+        return self: half the table memory for bfloat16, one storage
+        rounding of the weights (~0.4% relative), so the top-k order can
+        differ for near-tied candidates. Scoring keeps the float32 hidden
+        state and float32 accumulation.
+
+        Serving-only: it drops the training state, and ``fit(retrain=True)``
+        refuses the narrowed masters; keep the float32 archive to train
+        again. ``savemodel`` round-trips the cast model (dtype tags)."""
+        dt = gru.torch_dtype(dtype)
+        self.params = gru.map_params(lambda t: t.to(dt), self.params)
+        self._train_state = None
+        return self
+
+    # ------------------------------------------------------------------ #
+    def savemodel(self, fname: str, include_optimizer: bool = False):
+        save_model(self, fname, include_optimizer=include_optimizer)
+
+    @classmethod
+    def loadmodel(cls, fname: str, device=None) -> "GRU4Rec":
+        """A model from an archive of either package, on ``device`` (the
+        card unless ``device="cpu"``)."""
+        return load_model(fname, lambda cfg: cls(config=cfg, device=device))
+
+
+def _start_profile(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, epoch: int) -> None:
+    """Stop the profiler (if one runs) and write its Chrome trace as
+    ``<profile_dir>/trace_epoch<n>.json``."""
+    if prof is None:
+        return
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_epoch{epoch + 1}.json"))

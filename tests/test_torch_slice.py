@@ -16,7 +16,8 @@ with the port fed the JAX package's negative draws, under both
   activated-score path, which the port always takes).
 
 It also checks that no module of the port, nor ``chip_smoke.py``, imports
-JAX or the JAX package.
+JAX, ``ml_dtypes`` or the JAX package, and that only ``mesh=`` (multi-device)
+still raises ``NotImplementedError``.
 """
 
 import ast
@@ -265,13 +266,13 @@ def test_fit_then_evaluate_matches_jax(opt_state_dtype, jax_models, monkeypatch)
 
 
 def test_unported_options_raise():
+    """Multi-device training and serving (``mesh=``) are not ported."""
     cfg = gru4rec_tpu_torch.GRU4RecConfig(**cfg_kwargs("float32"))
     m = gru4rec_tpu_torch.GRU4Rec(cfg, device="cpu")
-    for kw in ({"resume": "x.npz"}, {"retrain": True}, {"mesh": object()},
-               {"checkpoint_every": 1}, {"profile_dir": "p"},
-               {"eval_data": markov(5)}):
-        with pytest.raises(NotImplementedError):
-            m.fit(markov(20), **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        m.fit(markov(20), mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        m.predict_topk([0], ["item_1"], mesh=object())
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -301,4 +302,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "gru4rec_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "ml_dtypes", "gru4rec_tpu"), (path, mod)
