@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 It drives ``gru4rec_tpu_torch`` only (no JAX):
 
 1. device  — the card's name and power limit (``nvidia-smi``);
-2. build   — compiles every CUDA source of the port with ``nvcc``;
+2. build   — compiles every CUDA source of the port with ``nvcc``, and the
+   host schedule builder with ``g++``, all at once;
 3. kernel  — holds the fused row-sparse update kernel against its plain
    PyTorch version on the card in each of its modes (K1-K4, module doc of
    ``ops/kernels/sparse_update.py``): every optimizer x momentum x L2 x
@@ -82,7 +83,23 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    flagship trained, saved and evaluated from TSV files, the archive
    loaded and evaluated to the same ``PRIMARY METRIC:``, and a NaN run
    that exits 2;
-17. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+17. scheduler — the native schedule builder (``data/_native_scheduler.py``,
+   ``csrc/scheduler.cpp`` built by ``g++``) against the numpy builder on the
+   train phase's split and on a RetailRocket-length split of 750,000 events:
+   equal arrays, and the median ms of 5 builds each. Every training phase
+   (``train`` to ``learn_sr``, and ``resume``) prints ``native_schedules``
+   and ``numpy_schedules``, the schedules built each way while it ran: none
+   by numpy;
+18. legacy_eval — on the train phase's flagship model and test split,
+   ``evaluate_sessions_batch`` (the ``predict_next_batch`` path) against
+   ``evaluate`` (recall and MRR @20 within 0.03), ``Pop`` and ``ItemKNN``
+   through ``evaluate_sessions``; seconds and events/s of each evaluator,
+   and the device memory peak of ``evaluate``;
+19. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
+   of two trials over the flagship's learning rate and momentum, then the
+   final run of the best at @1, 5, 20; ``-tf`` reaches every child (one
+   JSONL ``epoch`` event each);
+20. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -94,6 +111,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -131,8 +149,8 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def synth_split(seed=0, n_items=N_ITEMS, mean_len=MEAN_SESSION_LEN):
-    """bench.py::synth_data's generator at N_EVENTS events, split into train
+def synth_split(seed=0, n_items=N_ITEMS, mean_len=MEAN_SESSION_LEN, n_events=N_EVENTS):
+    """bench.py::synth_data's generator at ``n_events`` events, split into train
     (the first 90% of sessions) and test (the rest). Item ids that the zipf
     draw missed in train overwrite random repeated train events, so all
     ``n_items`` items are in the training catalog (the tables are full
@@ -140,7 +158,7 @@ def synth_split(seed=0, n_items=N_ITEMS, mean_len=MEAN_SESSION_LEN):
     import pandas as pd
 
     rng = np.random.RandomState(seed)
-    n_sessions = int(N_EVENTS / mean_len)
+    n_sessions = int(n_events / mean_len)
     lens = 2 + rng.geometric(1.0 / (mean_len - 2.0), size=n_sessions)
     total = int(lens.sum())
     ranks = np.arange(1, n_items + 1, dtype=np.float64)
@@ -219,11 +237,11 @@ def phase_build():
     from gru4rec_tpu_torch.ops.kernels import build
 
     t0 = time.time()
-    build.build()
-    for name in build.SOURCES:
+    names = (*build.SOURCES, *build.HOST_SOURCES)
+    build.build(names)
+    for name in names:
         build.load(name)
-    emit({"phase": "build", "sources": list(build.SOURCES),
-          "seconds": time.time() - t0})
+    emit({"phase": "build", "sources": list(names), "seconds": time.time() - t0})
 
 
 def _index_sets(rng, n_items, K, B, n):
@@ -597,6 +615,39 @@ def phase_reference():
         raise AssertionError(f"card and CPU disagree: loss {loss_err}, Wy {w_err}")
 
 
+@contextlib.contextmanager
+def _schedules():
+    """Counts the schedules built natively (``_native_scheduler.calls``, set
+    to 0 on entry) and by the numpy builder while the block runs; the counts
+    are in the yielded dict after the block."""
+    from gru4rec_tpu_torch.data import _native_scheduler, scheduler
+
+    numpy_build = scheduler._build_schedule_numpy
+    counts = {"native_schedules": 0, "numpy_schedules": 0}
+
+    def counted(*args, **kw):
+        counts["numpy_schedules"] += 1
+        return numpy_build(*args, **kw)
+
+    _native_scheduler.reset_calls()
+    scheduler._build_schedule_numpy = counted
+    try:
+        yield counts
+    finally:
+        scheduler._build_schedule_numpy = numpy_build
+        counts["native_schedules"] = _native_scheduler.calls
+
+
+def _check_schedules(phase, counts, expected):
+    """Every schedule of the phase was built natively, ``expected`` of them
+    (or at least one where ``expected`` is None)."""
+    native = counts["native_schedules"]
+    if counts["numpy_schedules"] or native < 1 or (expected is not None
+                                                   and native != expected):
+        raise AssertionError(f"{phase}: schedules {counts}, expected {expected} "
+                             f"native and none by numpy")
+
+
 def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
     """``GRU4Rec.fit`` for one epoch then ``evaluate``, with the kernel's
     launch counters set to 0 just before and read just after. ``per_step``
@@ -609,10 +660,15 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
 
     model = GRU4Rec(cfg, device=DEVICE)
     sparse_update.reset_launches()
-    model.fit(train)
-    rec, mrr = evaluate(model, test, cut_off=list(cut_off), batch_size=512)
-    torch.cuda.synchronize()
+    with _schedules() as schedules:
+        model.fit(train)
+        rec, mrr = evaluate(model, test, cut_off=list(cut_off), batch_size=512)
+        torch.cuda.synchronize()
     by_mode = dict(sparse_update.launches_by_mode)
+    # fit builds one schedule per epoch in a random order, else one for all
+    # epochs; evaluate one
+    _check_schedules(phase, schedules,
+                     (cfg.n_epochs if cfg.train_random_order else 1) + 1)
 
     steps = sum(e["steps"] for e in model.epoch_stats)
     stats = model.epoch_stats[-1]
@@ -644,7 +700,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
               "seconds": stats["seconds"],
               "events_per_s": stats["events"] / stats["seconds"],
               "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
-              "launches": by_mode, "card": smi_line}
+              "launches": by_mode, **schedules, "card": smi_line}
     emit(record)
     return record, model
 
@@ -746,9 +802,11 @@ def phase_learn():
 
     m = GRU4Rec(loss="bpr-max", layers=[64], batch_size=32, n_sample=64,
                 n_epochs=3, constrained_embedding=True, device=DEVICE)
-    m.fit(markov(800))
-    rec, mrr = evaluate(m, markov(100, seed=5), cut_off=[1, 5, 20], batch_size=32)
-    emit({"phase": "learn", "recall": rec, "mrr": mrr})
+    with _schedules() as schedules:
+        m.fit(markov(800))
+        rec, mrr = evaluate(m, markov(100, seed=5), cut_off=[1, 5, 20], batch_size=32)
+    emit({"phase": "learn", "recall": rec, "mrr": mrr, **schedules})
+    _check_schedules("learn", schedules, 2)
     if rec[0] < 0.9:
         raise AssertionError(f"markov recall@1 {rec[0]} < 0.9")
 
@@ -1262,30 +1320,32 @@ def phase_resume(smi_line):
     def run(**kw):
         return GRU4Rec(resume_cfg(), device=DEVICE).fit(train, **kw)
 
-    straight = [run(), run()]
-    repeat_diff = _max_diff(*map(_state, straight))
-    with tempfile.TemporaryDirectory() as tmp:
-        ck, prof = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "profile")
-        first = run(n_epochs=1, checkpoint_every=1, checkpoint_path=ck)
-        sparse_update.reset_launches()
-        resumed = run(resume=ck, profile_dir=prof)
-        torch.cuda.synchronize()
-        by_mode = dict(sparse_update.launches_by_mode)
-        traces = {f: os.path.getsize(os.path.join(prof, f)) for f in os.listdir(prof)}
-    resume_diff = _max_diff(_state(resumed), _state(straight[0]))
-    steps = sum(e["steps"] for e in resumed.epoch_stats)
+    with _schedules() as schedules:
+        straight = [run(), run()]
+        repeat_diff = _max_diff(*map(_state, straight))
+        with tempfile.TemporaryDirectory() as tmp:
+            ck, prof = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "profile")
+            first = run(n_epochs=1, checkpoint_every=1, checkpoint_path=ck)
+            sparse_update.reset_launches()
+            resumed = run(resume=ck, profile_dir=prof)
+            torch.cuda.synchronize()
+            by_mode = dict(sparse_update.launches_by_mode)
+            traces = {f: os.path.getsize(os.path.join(prof, f)) for f in os.listdir(prof)}
+        resume_diff = _max_diff(_state(resumed), _state(straight[0]))
+        steps = sum(e["steps"] for e in resumed.epoch_stats)
 
-    kept = run(eval_data=valid, eval_metric="mrr", early_stop_patience=1, keep_best=True)
-    mrrs = [v["mrr"] for v in kept.valid_stats]
-    best = 1 + int(np.argmax(mrrs))  # the first of equal scores, as fit() keeps
-    ref = {1: first, 2: run(n_epochs=2), 3: straight[0]}[best]
-    keep_diff = _max_diff(kept.params, ref.params)
+        kept = run(eval_data=valid, eval_metric="mrr", early_stop_patience=1,
+                   keep_best=True)
+        mrrs = [v["mrr"] for v in kept.valid_stats]
+        best = 1 + int(np.argmax(mrrs))  # the first of equal scores, as fit() keeps
+        ref = {1: first, 2: run(n_epochs=2), 3: straight[0]}[best]
+        keep_diff = _max_diff(kept.params, ref.params)
     out = {"phase": "resume", "repeat_diff": repeat_diff, "resume_diff": resume_diff,
            "losses": [e["loss"] for e in straight[0].epoch_stats],
            "resumed_losses": [e["loss"] for e in resumed.epoch_stats],
            "resumed_steps": steps, "launches": by_mode, "trace_bytes": traces,
            "valid_mrr": mrrs, "best_epoch": best, "keep_best_diff": keep_diff,
-           "seconds": time.time() - t_phase, "card": smi_line}
+           **schedules, "seconds": time.time() - t_phase, "card": smi_line}
     emit(out)
     if by_mode != {m: (steps if m == "K2" else 0) for m in sparse_update.MODES}:
         raise AssertionError(f"the resumed run launched {by_mode} over {steps} steps")
@@ -1295,6 +1355,7 @@ def phase_resume(smi_line):
         raise AssertionError(f"profile_dir holds {traces}")
     if not (kept.valid_stats and keep_diff <= repeat_diff):
         raise AssertionError(f"keep_best kept parameters {keep_diff} off epoch {best}'s")
+    _check_schedules("resume", schedules, None)
 
 
 def _param_string(params):
@@ -1356,6 +1417,178 @@ def phase_cli(smi_line):
         raise AssertionError("a NaN dump landed in the working directory")
 
 
+SCHEDULE_EVENTS = 750_000  # bench.py's RetailRocket length (N_EVENTS_TARGET)
+SCHEDULE_REPS = 5
+
+
+def _schedule_inputs(train):
+    """What ``fit`` hands the schedule builder for ``train``: the dense item
+    indices, the session offsets and the session order."""
+    from gru4rec_tpu_torch.data.loader import apply_itemidmap, build_itemidmap
+    from gru4rec_tpu_torch.data.scheduler import session_order
+    from gru4rec_tpu_torch.data.tools import compute_offset, sort_if_needed
+
+    data = apply_itemidmap(train, build_itemidmap(train, "ItemId"), "ItemId")
+    sort_if_needed(data, ["SessionId", "Time"])
+    offsets = compute_offset(data, "SessionId")
+    order = session_order(data, "SessionId", "Time", False, len(offsets) - 1)
+    return data["ItemIdx"].values.astype(np.int32), offsets, order
+
+
+def phase_scheduler(smi_line):
+    """The native schedule builder against the numpy builder at the
+    flagship's batch, on the train phase's split and on a RetailRocket-length
+    split: the four arrays equal, and the median host ms of
+    ``SCHEDULE_REPS`` builds each way."""
+    from gru4rec_tpu_torch.data import _native_scheduler
+    from gru4rec_tpu_torch.data.scheduler import _build_schedule_numpy
+
+    t_phase = time.time()
+    if not _native_scheduler.available():
+        raise AssertionError("the native scheduler is not available (no g++?)")
+    out = {"phase": "scheduler", "batch_size": FLAGSHIP["batch_size"]}
+    for name, n_events in (("train", N_EVENTS), ("retailrocket", SCHEDULE_EVENTS)):
+        args = (*_schedule_inputs(synth_split(n_events=n_events)[0]),
+                FLAGSHIP["batch_size"], False)
+        times, built = {}, {}
+        for way, fn in (("native", _native_scheduler.build_schedule),
+                        ("numpy", _build_schedule_numpy)):
+            wall = []
+            for _ in range(SCHEDULE_REPS):
+                t0 = time.perf_counter()
+                built[way] = fn(*args)
+                wall.append(time.perf_counter() - t0)
+            times[way] = float(np.median(wall)) * 1e3
+        equal = all(np.array_equal(getattr(built["native"], f), getattr(built["numpy"], f))
+                    for f in ("in_idx", "out_idx", "valid", "reset"))
+        out[name] = {"events": len(args[0]), "sessions": len(args[1]) - 1,
+                     "steps": built["native"].n_steps, "native_ms": times["native"],
+                     "numpy_ms": times["numpy"],
+                     "numpy_over_native": times["numpy"] / times["native"],
+                     "equal": equal}
+        if not equal or built["native"].n_steps != built["numpy"].n_steps:
+            raise AssertionError(f"native and numpy schedules differ on {name}: {out[name]}")
+    out.update(seconds=time.time() - t_phase, card=smi_line)
+    emit(out)
+
+
+LEGACY_CUT_OFF = 20
+LEGACY_BATCH = 100
+LEGACY_TOL = 0.03  # two walks that refill lanes in another order
+
+
+def phase_legacy_eval(model, smi_line):
+    """The legacy evaluators on the train phase's flagship model and its
+    test split: ``evaluate_sessions_batch`` (``predict_next_batch`` per step
+    and host ranking) against ``evaluate``, recall and MRR @20 within
+    ``LEGACY_TOL``; ``Pop`` and ``ItemKNN`` fitted on the train split and
+    scored by ``evaluate_sessions``. Seconds and events/s of each, and the
+    device memory peak of ``evaluate``."""
+    import torch
+
+    from gru4rec_tpu_torch import evaluate
+    from gru4rec_tpu_torch.baselines import ItemKNN, Pop
+    from gru4rec_tpu_torch.eval import evaluate_sessions, evaluate_sessions_batch
+
+    t_phase = time.time()
+    train, test = synth_split()
+    n_events = int((test.groupby("SessionId").size() - 1).sum())
+    out = {"phase": "legacy_eval", "cut_off": LEGACY_CUT_OFF, "batch_size": LEGACY_BATCH,
+           "test_events": n_events}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        rec, mrr = fn()
+        seconds = time.perf_counter() - t0
+        out[name] = {"recall": rec, "mrr": mrr, "seconds": seconds,
+                     "events_per_s": n_events / seconds}
+        if not (0.0 <= mrr <= rec <= 1.0):
+            raise AssertionError(f"{name}: metric out of range: {out[name]}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def gpu():
+        rec, mrr = evaluate(model, test, cut_off=[LEGACY_CUT_OFF], batch_size=LEGACY_BATCH)
+        return rec[0], mrr[0]
+
+    timed("evaluate", gpu)
+    out["evaluate"].update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                           memory_allocated_before=base)
+    timed("evaluate_sessions_batch", lambda: evaluate_sessions_batch(
+        model, test, cut_off=LEGACY_CUT_OFF, batch_size=LEGACY_BATCH))
+    for name, pr in (("Pop", Pop()), ("ItemKNN", ItemKNN())):
+        t0 = time.perf_counter()
+        pr.fit(train)
+        fit_s = time.perf_counter() - t0
+        timed(name, lambda: evaluate_sessions(pr, test, train, cut_off=LEGACY_CUT_OFF))
+        out[name]["fit_seconds"] = fit_s
+    out.update(seconds=time.time() - t_phase, card=smi_line)
+    emit(out)
+    diff = {k: abs(out["evaluate_sessions_batch"][k] - out["evaluate"][k])
+            for k in ("recall", "mrr")}
+    if max(diff.values()) > LEGACY_TOL:
+        raise AssertionError(f"evaluate_sessions_batch is {diff} off evaluate")
+
+
+PAROPT_SPACE = (
+    '{"name": "learning_rate", "dtype": "float", "values": [0.02, 0.1], "log": true}\n'
+    '{"name": "momentum", "dtype": "float", "values": [0.2, 0.6], "step": 0.1}\n')
+
+
+def phase_paropt(smi_line):
+    """``python -m gru4rec_tpu_torch.cli.paropt`` on the flagship split as
+    TSV files: the flagship's parameters but learning rate and momentum
+    fixed, a random search of two trials over those two, the final run at
+    @1, 5 and 20; the trials' JSONL log through ``-tf``. K1 runs in the
+    children, uncounted."""
+    from gru4rec_tpu_torch.cli.paropt import scrape_primary_metric
+
+    t_phase = time.time()
+    train, test = synth_split()
+    fixed = {k: v for k, v in FLAGSHIP.items() if k not in ("learning_rate", "momentum")}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_p, test_p, space_p, log_p = (
+            os.path.join(tmp, f) for f in ("train.tsv", "test.tsv", "space.jsonl",
+                                           "trials.jsonl"))
+        train.to_csv(train_p, sep="\t", index=False)
+        test.to_csv(test_p, sep="\t", index=False)
+        with open(space_p, "w") as f:
+            f.write(PAROPT_SPACE)
+        res = subprocess.run(
+            [sys.executable, "-m", "gru4rec_tpu_torch.cli.paropt", train_p, test_p,
+             "-fp", _param_string(fixed), "-opf", space_p, "-nt", "2", "-m", "20",
+             "-fm", "1", "5", "20", "-tf", f"GRU4REC_TPU_LOG_JSONL={log_p}"],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        events = ([json.loads(ln) for ln in open(log_p)] if os.path.exists(log_p)
+                  else [])
+    lines = res.stdout.splitlines()
+    trials = [ln.split(": ", 1)[1] for ln in lines if ln.startswith("--- trial ")]
+    metrics = [m for m in map(scrape_primary_metric, lines) if m is not None]
+    best = [float(ln.split(":")[1]) for ln in lines if ln.startswith("Best value:")]
+    final = res.stdout.split("Running final eval @[1, 5, 20]:")[-1]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    out = {"phase": "paropt", "rc": res.returncode, "trials": trials, "metrics": metrics,
+           "best_value": best[0] if best else None,
+           "final": [ln for ln in final.splitlines() if ln.startswith("Recall@")],
+           "epoch_events": len(epochs),
+           "events_per_s": [e["e_per_s"] for e in epochs],
+           "seconds": time.time() - t_phase, "card": smi_line}
+    emit(out)
+    if res.returncode != 0:
+        raise AssertionError(f"paropt exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    if len(metrics) != 2 or best != [max(metrics)]:
+        raise AssertionError(f"paropt scraped {metrics}, best {best}")
+    if [ln.split(":")[0] for ln in out["final"]] != ["Recall@1", "Recall@5", "Recall@20"]:
+        raise AssertionError(f"the final run printed {out['final']}")
+    if len(epochs) != 3 or len(events) != 3:
+        raise AssertionError(f"the trials' log holds {events}: -tf did not reach "
+                             f"every child")
+
+
 # the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
@@ -1397,6 +1630,9 @@ def main() -> int:
     phase_checkpoint(flagship, smi_line)
     phase_resume(smi_line)
     phase_cli(smi_line)
+    phase_scheduler(smi_line)
+    phase_legacy_eval(flagship, smi_line)
+    phase_paropt(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{

@@ -1,7 +1,7 @@
 """Session-parallel mini-batch schedule, precomputed as dense step arrays.
 
-A copy of the numpy path of ``gru4rec_tpu/data/scheduler.py``: one row
-per step, one column per lane —
+The counterpart of ``gru4rec_tpu/data/scheduler.py``: one row per step,
+one column per lane —
 
 * ``in_idx[t, b]``  — input item index of lane b at step t
 * ``out_idx[t, b]`` — target item index
@@ -14,8 +14,9 @@ The lane walk (window length = min remaining session length; finished lanes
 refilled with the next session in order; lanes that cannot refill are
 retired) replicates the reference exactly, including its termination
 condition (stop when fewer than 2 lanes remain and there are no extra
-negative samples, reference gru4rec.py:637). The C++ scheduler of the JAX
-package is not ported yet.
+negative samples, reference gru4rec.py:637). ``build_schedule`` runs the
+native C++ builder (``data/_native_scheduler.py``) where it can, and the
+numpy builder, its oracle, otherwise: both give the same arrays.
 """
 
 from __future__ import annotations
@@ -87,6 +88,21 @@ def build_schedule(
         does this during training when ``n_sample == 0`` because a single
         lane would have no within-batch negatives (gru4rec.py:637).
     """
+    from gru4rec_tpu_torch.data import _native_scheduler
+
+    # the native builder, or this module's numpy builder where it falls back
+    return _native_scheduler.build_schedule(
+        data_items, offsets, order, batch_size, require_two_lanes
+    )
+
+
+def _build_schedule_numpy(
+    data_items: np.ndarray,
+    offsets: np.ndarray,
+    order: np.ndarray,
+    batch_size: int,
+    require_two_lanes: bool,
+) -> Schedule:
     data_items = np.asarray(data_items, dtype=np.int32)
     offsets = np.asarray(offsets, dtype=np.int64)
     n_sessions = len(offsets) - 1
