@@ -99,7 +99,31 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    of two trials over the flagship's learning rate and momentum, then the
    final run of the best at @1, 5, 20; ``-tf`` reaches every child (one
    JSONL ``epoch`` event each);
-20. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+20. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
+   over ``torch.distributed``, in three parts. ``mesh_shard_kernel``: K1
+   and K2 on the flagship ``Wy`` and K4 on the RSC15 ``Wx0``, cut into 2
+   and 4 row-shards as a mesh's model ranks hold them, each shard's call
+   on its rows with local indices and ``sr_seed=(seed, r0)``: bit-equal to
+   the whole-table call (``r0`` and ``max_abs_err`` per shard).
+   ``mesh_1x1``: ``fit(mesh=make_mesh(1, 1))`` of the flagship over NCCL
+   on ``cuda:0`` for the train phase's epoch: loss, every parameter and
+   optimizer leaf, and Recall/MRR@1/5/20 of ``evaluate(mesh=)`` bit-equal
+   to the train phase's; K1 once per step; ``predict_topk(mesh=)`` at batch
+   1, 64 and 256 equal to the single-device call (warm median ms per call
+   of both in turns, the mesh call's device ms, events/s).
+   ``mesh_2x2_shared_card``: four ranks that the script spawns
+   (``chip_smoke.py --mesh-rank <rank> <port> <dir>``), all on ``cuda:0``
+   over gloo, which the script names (NCCL takes one rank per card): the
+   flagship at full width for the train split's first 300 steps through
+   the distributed chunk function, with float32 products and state (the
+   JAX package's mesh parity settings) and once with ``bfloat16_sr``
+   state, against one device over the same steps: loss within rtol 1e-4,
+   ``Wy`` within rtol 2e-4 / atol 1e-6, Recall@20 of ``evaluate(mesh=)``
+   within 1e-3, the SR run's summed ``Wy`` accumulator within
+   ``SR_ACC_REL_LIMIT`` of the float32 run's; K1 (K2) once per step on
+   every rank; each rank's ``(di, mi, r0)``. A rank that fails or times
+   out fails the phase;
+21. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -555,7 +579,7 @@ def phase_kernel_timing():
         kern = lambda s: sparse_update.fused_update(opt, table, idxs[s], gs[s], st,
                                                     sr_seed=sr_seed)
         plain = lambda s: opt.apply_sparse_plain(table, idxs[s], gs[s], st, sr_seed=sr_seed)
-        times = proto_measure.device_times(kern)
+        times = proto_measure.device_times(kern, steps=steps, names=CALL_OPS)
         ms = proto_measure.kernel_us(times, CALL_OPS, steps, exclusive=True) / 1e3
         step_ms = proto_measure.steps_us(kern) / 1e3
         plain_ms = proto_measure.steps_us(plain, reps=3) / 1e3
@@ -1589,6 +1613,348 @@ def phase_paropt(smi_line):
                              f"every child")
 
 
+# ---------------------------------------------------------------------- #
+# mesh: the (data, model) mesh over torch.distributed (parallel/)
+MESH_MODEL_SHARDS = (2, 4)  # mesh_shard_kernel's row-shard counts
+MESH_STEPS = 300            # mesh_2x2_shared_card's depth: the split's first steps
+# mesh_2x2_shared_card's cases: float32 products and state, the settings of
+# the JAX package's mesh parity tests (tests/test_parallel.py:47-50): a
+# bfloat16 rounding turns the sums' other order into an ulp of 2**-8, and the
+# runs drift apart; the SR case stores the accumulator in bfloat16 (K2)
+MESH_CASES = {"train": {"compute_dtype": "float32", "opt_state_dtype": "float32"},
+              "train_sr": {"compute_dtype": "float32", "opt_state_dtype": "bfloat16_sr"}}
+MESH_RANK_TIMEOUT = 600     # seconds for the four ranks together
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and bool(_bits_equal(a, b).all())
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def _shard_calls(opt, table, idx_t, g, st, sr_seed, n_model):
+    """The whole-table call, then one call per row-shard on a copy of its
+    rows with its local indices (rows of other shards the sentinel) and
+    ``sr_seed`` offset to the shard's first row. Returns each shard's first
+    row, its max abs error against the whole call's rows and whether all
+    of its tensors are bit-equal to them."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    rows = table.shape[0] // n_model
+    t_w, st_w = table.clone(), {k: v.clone() for k, v in st.items()}
+    sparse_update.fused_update(opt, t_w, idx_t, g, st_w, sr_seed=sr_seed)
+    shards = []
+    for mi in range(n_model):
+        r0 = mi * rows
+        t_s = table[r0:r0 + rows].clone()
+        st_s = {k: v[r0:r0 + rows].clone() for k, v in st.items()}
+        idx_l = torch.where((idx_t >= r0) & (idx_t < r0 + rows), idx_t - r0, SENTINEL)
+        sparse_update.fused_update(opt, t_s, idx_l, g, st_s,
+                                   sr_seed=None if sr_seed is None else (sr_seed[0], r0))
+        shards.append((r0, [t_s] + [st_s[k] for k in st]))
+    torch.cuda.synchronize()
+    out = []
+    for r0, got in shards:
+        want = [t_w[r0:r0 + rows]] + [st_w[k][r0:r0 + rows] for k in st]
+        out.append((r0, max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(got, want)),
+                    all(_same_bits(a, b) for a, b in zip(got, want))))
+    return out
+
+
+def phase_mesh_shard_kernel(smi_line):
+    """The row-sparse kernel on row-shards, as each model rank of a mesh
+    calls it: K1 and K2 on the flagship ``Wy`` (36,992 x 256, K = 2,208),
+    K4 on the RSC15 ``Wx0`` (37,504 x 300, K = 32), cut into 2 and 4
+    shards; the shards' tables and state bit-equal to the whole-table
+    call's."""
+    from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
+
+    rng = np.random.RandomState(5)
+    n_rows, d = pad_items(N_ITEMS, 128), pad_cols(224 + 1)
+    idx = _index_sets(rng, N_ITEMS, 2 * 80 + 2048, 80, 1)[0]
+    cases = {
+        "K1": (_make_case("adagrad", 0.4, 0.0, "bfloat16", n_rows, d, idx, 11), None),
+        "K2": (_make_case("adagrad", 0.4, 0.0, "bfloat16_sr", n_rows, d, idx, 12), SR_SEED),
+        "K4": (_make_case("adagrad", 0.3, 0.0, "bfloat16", pad_items(RSC15_ITEMS, 128), 300,
+                          _lane_set(rng, RSC15_ITEMS, 32), 13), None),
+    }
+    for name, ((opt, table, idx_t, g, st), sr_seed) in cases.items():
+        for n_model in MESH_MODEL_SHARDS:
+            shards = _shard_calls(opt, table, idx_t, g, st, sr_seed, n_model)
+            rec = {"phase": "mesh_shard_kernel", "case": name, "n_model": n_model,
+                   "shape": list(table.shape), "K": int(idx_t.shape[0]),
+                   "r0": [r0 for r0, _, _ in shards],
+                   "max_abs_err": [e for _, e, _ in shards],
+                   "bit_equal": all(eq for _, _, eq in shards), "card": smi_line}
+            emit(rec)
+            if not rec["bit_equal"]:
+                raise AssertionError(f"{name} on {n_model} row-shards differs from the "
+                                     f"whole-table call: {rec}")
+
+
+def phase_mesh_1x1(flagship, train_rec, smi_line):
+    """``fit(mesh=make_mesh(1, 1))`` of the flagship over NCCL on ``cuda:0``
+    for the train phase's epoch, ``evaluate(mesh=)`` and
+    ``predict_topk(mesh=)``: bit-equal to the train phase's model and to
+    the single-device calls; K1 once per step; the warm median ms per
+    ``predict_topk`` call, mesh and single-device in turns, the mesh call's
+    device ms (as ``serve`` reads it) and events/s at batch 1, 64 and 256;
+    the seconds ``make_mesh`` takes (it sets up each group's communicator)."""
+    import torch
+    import torch.distributed as dist
+
+    from gru4rec_tpu_torch import GRU4Rec, evaluate
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+    from gru4rec_tpu_torch.ops.kernels.proto_measure import device_times
+    from gru4rec_tpu_torch.parallel import make_mesh
+
+    t_phase = time.time()
+    train, test = synth_split()
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1)
+    mesh_seconds = time.perf_counter() - t0
+    try:
+        model = GRU4Rec(flagship_cfg(), device=DEVICE)
+        sparse_update.reset_launches()
+        model.fit(train, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = dict(sparse_update.launches_by_mode)
+        rec, mrr = evaluate(model, test, cut_off=[1, 5, 20], batch_size=512, mesh=mesh)
+        want = dict(_leaves({"params": flagship._train_state.params,
+                             "opt_state": flagship._train_state.opt_state}))
+        got = dict(_leaves({"params": model._train_state.params,
+                            "opt_state": model._train_state.opt_state}))
+        differ = [k for k in want if k not in got or not _same_bits(got[k], want[k].cpu())]
+        steps = sum(e["steps"] for e in model.epoch_stats)
+        out = {"phase": "mesh_1x1", "backend": dist.get_backend(), "device": str(mesh.device),
+               "mesh_seconds": mesh_seconds, "steps": steps, "loss": model.epoch_stats[-1]["loss"],
+               "train_loss": flagship.epoch_stats[-1]["loss"],
+               "events_per_s": model.epoch_stats[-1]["events"] / model.epoch_stats[-1]["seconds"],
+               "leaves": len(want), "leaves_differ": differ,
+               "recall": dict(zip(("@1", "@5", "@20"), rec)),
+               "mrr": dict(zip(("@1", "@5", "@20"), mrr)), "launches": launches}
+        rng = np.random.RandomState(1)
+        catalog = model.itemidmap.index.values
+        for batch in SERVE_BATCHES:
+            calls = [catalog[rng.randint(0, model.n_items, batch)] for _ in range(SERVE_REPS)]
+            ids_m, sc_m = model.predict_topk(_fresh_sessions(batch), calls[0], k=SERVE_K,
+                                             batch=batch, mesh=mesh)
+            ids_s, sc_s = model.predict_topk(_fresh_sessions(batch), calls[0], k=SERVE_K,
+                                             batch=batch)
+            sess = _fresh_sessions(batch)
+            wall = {"mesh": [], "single": []}
+            for x in calls:  # in turns
+                for name, m in (("mesh", mesh), ("single", None)):
+                    t0 = time.perf_counter()
+                    model.predict_topk(sess, x, k=SERVE_K, batch=batch, mesh=m)
+                    wall[name].append(time.perf_counter() - t0)
+            dev = device_times(lambda i: model.predict_topk(sess, calls[i], k=SERVE_K,
+                                                            batch=batch, mesh=mesh),
+                               steps=SERVE_REPS)
+            out[f"topk_batch{batch}"] = {
+                "same_as_single": bool(np.array_equal(ids_m, ids_s)
+                                       and np.array_equal(sc_m, sc_s)),
+                "ms": float(np.median(wall["mesh"])) * 1e3,
+                "single_ms": float(np.median(wall["single"])) * 1e3,
+                "device_ms": sum(v[0] for v in dev.values()) / SERVE_REPS / 1e3,
+                "events_per_s": batch * SERVE_REPS / sum(wall["mesh"])}
+    finally:
+        dist.destroy_process_group()
+    out.update(seconds=time.time() - t_phase, card=smi_line)
+    emit(out)
+    if out["backend"] != "nccl" or differ or out["loss"] != out["train_loss"]:
+        raise AssertionError(f"mesh_1x1 differs from the train phase: {out}")
+    if out["recall"] != train_rec["recall"] or out["mrr"] != train_rec["mrr"]:
+        raise AssertionError(f"mesh_1x1 metrics {out['recall']} {out['mrr']} against "
+                             f"{train_rec['recall']} {train_rec['mrr']}")
+    if launches != {**dict.fromkeys(sparse_update.MODES, 0), "K1": steps}:
+        raise AssertionError(f"mesh_1x1 launched {launches} in {steps} steps")
+    if not all(out[f"topk_batch{b}"]["same_as_single"] for b in SERVE_BATCHES):
+        raise AssertionError(f"predict_topk(mesh=) differs from the single-device call: {out}")
+
+
+def _flagship_schedule(cfg):
+    """What ``fit`` builds from the train split (the item map, the
+    schedule, the alias table), and the test split."""
+    from gru4rec_tpu_torch.data.loader import apply_itemidmap, build_itemidmap
+    from gru4rec_tpu_torch.data.scheduler import build_schedule, session_order
+    from gru4rec_tpu_torch.data.tools import compute_offset, sort_if_needed
+    from gru4rec_tpu_torch.ops.sampling import build_alias_table
+
+    train, test = synth_split()
+    itemidmap = build_itemidmap(train, "ItemId")
+    data = apply_itemidmap(train, itemidmap, "ItemId")
+    sort_if_needed(data, ["SessionId", "Time"])
+    offsets = compute_offset(data, "SessionId")
+    order = session_order(data, "SessionId", "Time", cfg.time_sort, len(offsets) - 1)
+    sched = build_schedule(data["ItemIdx"].values.astype(np.int32), offsets, order,
+                           cfg.batch_size)
+    pop = (data.groupby("ItemId").size()
+           .reindex(itemidmap.index.values, fill_value=0).values)
+    return itemidmap, sched, build_alias_table(pop, cfg.sample_alpha), test
+
+
+def _flagship_steps(cfg, mesh=None):
+    """The flagship's first ``MESH_STEPS`` steps at full width through the
+    chunk function, on ``DEVICE`` or on ``mesh``, then ``evaluate`` @20 on
+    the test split. Returns the record and the canonical state."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec, evaluate
+    from gru4rec_tpu_torch.models.gru import pad_items
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+    from gru4rec_tpu_torch.parallel.dist_step import (make_dist_chunk_fn, shard_train_state,
+                                                      unshard_train_state)
+    from gru4rec_tpu_torch.train.step import init_train_state, make_chunk_fn, make_generator
+
+    itemidmap, sched, packed, test = _flagship_schedule(cfg)
+    n = len(itemidmap)
+    dev = torch.device(DEVICE) if mesh is None else mesh.device
+    model = GRU4Rec(cfg, device=dev)  # sets the card's float32 matmuls
+    if mesh is None:
+        state, fn = init_train_state(cfg, n, dev), make_chunk_fn(cfg, n)
+    else:
+        state = init_train_state(cfg, n, "cpu")
+        state.gen = make_generator(cfg.seed, dev)
+        state, fn = shard_train_state(state, cfg, mesh), make_dist_chunk_fn(cfg, n, mesh)
+    steps = [a[:MESH_STEPS] for a in (sched.in_idx, sched.out_idx, sched.valid, sched.reset)]
+    sparse_update.reset_launches()
+    t0 = time.perf_counter()
+    loss, events = fn(state, *steps, torch.from_numpy(packed).to(dev),
+                      torch.zeros(pad_items(n, cfg.item_pad_multiple), device=dev))
+    loss = float(loss)
+    seconds = time.perf_counter() - t0
+    launches = dict(sparse_update.launches_by_mode)
+    canon = state if mesh is None else unshard_train_state(state, cfg, mesh)
+    model.itemidmap, model.n_items, model.params = itemidmap, n, canon.params
+    rec, _ = evaluate(model, test, cut_off=[20], batch_size=512, mesh=mesh)
+    return {"steps": int((steps[2].sum(axis=1) > 0).sum()), "events": events, "loss": loss,
+            "seconds": seconds, "events_per_s": events / seconds, "launches": launches,
+            "recall20": rec[0],
+            "acc_sum": float(canon.opt_state["sparse"]["Wy"]["acc"].double().sum())}, canon
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank_main(rank, port, out_dir) -> int:
+    """One rank of ``mesh_2x2_shared_card`` (``chip_smoke.py --mesh-rank
+    <rank> <port> <dir>``): a 2x2 mesh of four processes on ``cuda:0`` over
+    gloo; the flagship's first steps in each ``MESH_CASES`` case; its
+    record to ``<dir>/rank<r>.json`` (rank 0 also the float32 case's ``Wy``
+    as ``Wy.npy``)."""
+    import torch.distributed as dist
+
+    rank = int(rank)
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="4", LOCAL_RANK="0")
+    from gru4rec_tpu_torch.models.gru import pad_items
+    from gru4rec_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, 2, device="cuda:0", backend="gloo")
+    rows = pad_items(N_ITEMS, 128) // mesh.shape["model"]
+    rec = {"rank": rank, "di": mesh.di, "mi": mesh.mi, "r0": mesh.mi * rows,
+           "backend": dist.get_backend(), "device": str(mesh.device), "cases": {}}
+    print(json.dumps(rec), flush=True)
+    for case, kw in MESH_CASES.items():
+        rec["cases"][case], canon = _flagship_steps(flagship_cfg(**kw), mesh)
+        if rank == 0 and case == "train":
+            np.save(os.path.join(out_dir, "Wy.npy"), canon.params["Wy"].numpy())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh_2x2_shared_card(smi_line):
+    """A 2x2 mesh of four ranks that this script spawns, all on ``cuda:0``
+    over gloo (NCCL takes one rank per card), against one device over the
+    same events: the flagship at full width for its first ``MESH_STEPS``
+    steps, loss within rtol 1e-4, ``Wy`` within rtol 2e-4 / atol 1e-6,
+    Recall@20 within 1e-3; the ``bfloat16_sr`` case's summed ``Wy``
+    accumulator within ``SR_ACC_REL_LIMIT`` of the float32 run's; K1 (K2
+    under SR) once per step on every rank. A rank that fails or outlives
+    ``MESH_RANK_TIMEOUT`` fails the phase."""
+    import torch
+
+    t_phase = time.time()
+    ref, ref_state = _flagship_steps(flagship_cfg(**MESH_CASES["train"]))
+    ref_wy = ref_state.params["Wy"].cpu().numpy()
+    del ref_state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(4)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), str(port), tmp], stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(4)]
+        deadline = time.time() + MESH_RANK_TIMEOUT
+        failed = []
+        try:
+            for r, p in enumerate(procs):
+                try:
+                    if p.wait(timeout=max(1.0, deadline - time.time())) != 0:
+                        failed.append(f"rank {r} exited {p.returncode}")
+                except subprocess.TimeoutExpired:
+                    failed.append(f"rank {r} timed out")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if failed:
+            tails = "\n".join(f"--- rank {r}\n" + open(os.path.join(tmp, f"rank{r}.log"))
+                              .read()[-4000:] for r in range(4))
+            raise AssertionError(f"mesh_2x2_shared_card: {failed}\n{tails}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(4)]
+        wy = np.load(os.path.join(tmp, "Wy.npy"))
+    for rec in ranks:
+        emit({"phase": "mesh_rank", **{k: rec[k] for k in ("rank", "di", "mi", "r0",
+                                                           "backend", "device")}})
+    mesh_f32, mesh_sr = ranks[0]["cases"]["train"], ranks[0]["cases"]["train_sr"]
+    out = {"phase": "mesh_2x2_shared_card", "steps": mesh_f32["steps"],
+           "single": ref, "mesh": ranks[0]["cases"],
+           "loss_rel_err": abs(mesh_f32["loss"] - ref["loss"]) / abs(ref["loss"]),
+           "Wy_max_abs_err": float(np.abs(wy - ref_wy).max()),
+           "recall20_diff": abs(mesh_f32["recall20"] - ref["recall20"]),
+           "sr_acc_rel_err": abs(mesh_sr["acc_sum"] - ref["acc_sum"]) / ref["acc_sum"],
+           "launches_by_rank": [{c: r["cases"][c]["launches"] for c in MESH_CASES}
+                                for r in ranks],
+           "seconds": time.time() - t_phase, "card": smi_line}
+    emit(out)
+    bad = [r["rank"] for r in ranks if r["backend"] != "gloo" or any(
+        r["cases"][c]["loss"] != ranks[0]["cases"][c]["loss"] for c in MESH_CASES)]
+    for r in ranks:
+        for case, mode in (("train", "K1"), ("train_sr", "K2")):
+            got = r["cases"][case]["launches"]
+            if got != {**{m: 0 for m in got}, mode: r["cases"][case]["steps"]}:
+                bad.append(f"rank {r['rank']} {case} launches {got}")
+    if bad:
+        raise AssertionError(f"mesh_2x2_shared_card ranks disagree: {bad}")
+    if not (out["loss_rel_err"] <= 1e-4 and np.allclose(wy, ref_wy, rtol=2e-4, atol=1e-6)
+            and out["recall20_diff"] <= 1e-3 and out["sr_acc_rel_err"] <= SR_ACC_REL_LIMIT):
+        raise AssertionError(f"mesh_2x2_shared_card against one device: {out}")
+
+
 # the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
@@ -1633,6 +1999,9 @@ def main() -> int:
     phase_scheduler(smi_line)
     phase_legacy_eval(flagship, smi_line)
     phase_paropt(smi_line)
+    phase_mesh_shard_kernel(smi_line)
+    phase_mesh_1x1(flagship, paths["train"], smi_line)
+    phase_mesh_2x2_shared_card(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{
@@ -1665,4 +2034,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of mesh_2x2_shared_card
+        sys.exit(mesh_rank_main(*sys.argv[2:5]))
     sys.exit(main())

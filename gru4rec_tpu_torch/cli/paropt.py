@@ -16,6 +16,8 @@ Every child builds its native sources into the package's own
 each source), which all children share by construction: a sweep compiles
 the kernels once, in its first trial. ``-d`` is forwarded to every child;
 the children run on the CUDA card unless ``-d cpu`` asks for the CPU.
+``--mesh`` is forwarded too, and a mesh of more than one rank starts each
+child under ``torch.distributed.run`` (:func:`generate_command`).
 
     python -m gru4rec_tpu_torch.cli.paropt train.tsv valid.tsv \\
         -fp loss=bpr-max,layers=224 -opf space.jsonl -nt 20 -m 20 -fm 1 5 20
@@ -100,11 +102,26 @@ def generate_command(args, optimized_param_str, measure, log_pm=True):
     ]
     if getattr(args, "device", None):
         cmd += ["-d", args.device]
-    if getattr(args, "mesh", None):
-        cmd += ["--mesh", args.mesh]
+    mesh = getattr(args, "mesh", None)
+    if mesh:
+        cmd += ["--mesh", mesh]
     if log_pm:
         cmd.append("-lpm")
+    ranks = mesh_ranks(mesh)
+    if ranks > 1:  # one process per rank, started by torchrun
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(ranks)] + cmd[1:]
     return cmd
+
+
+def mesh_ranks(spec) -> int:
+    """The ranks an 'NDxNM' ``--mesh`` names; 1 for none, ``auto`` (the
+    child factors its own launch) or a spec the child will refuse."""
+    try:
+        nd, nm = (int(p) for p in (spec or "").lower().split("x"))
+    except ValueError:
+        return 1
+    return nd * nm
 
 
 def trial_env(args):
@@ -172,8 +189,10 @@ def main(argv=None):
                         help="Forwarded to every trial's run.py: the device "
                              "(e.g. cpu, cuda:1); default is the CUDA card.")
     parser.add_argument("--mesh", metavar="DATAxMODEL", type=str, default=None,
-                        help="Forwarded to every trial's run.py, which does not "
-                             "support a multi-device mesh yet (an error).")
+                        help="Forwarded to every trial's run.py ('NDxNM' or 'auto'); "
+                             "a mesh of more than one rank starts each child as "
+                             "`python -m torch.distributed.run --standalone "
+                             "--nproc_per_node ND*NM`, one process per rank.")
     parser.add_argument("-fp", "--fixed_parameters", metavar="PARAM_STRING", type=str, default="")
     parser.add_argument("-opf", "--optuna_parameter_file", metavar="PATH", type=str, required=True)
     # const= so a BARE `-m` / `-nt` keeps the default instead of parsing to

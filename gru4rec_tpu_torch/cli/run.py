@@ -5,18 +5,29 @@ The PyTorch counterpart of ``gru4rec_tpu/cli/run.py``, with its flags
 ``PRIMARY METRIC:`` stdout line that the paropt driver reads (reference:
 run.py:133), and exit code 2 when training diverges. ``-g`` selects the
 module of the GRU4Rec class (default ``gru4rec_tpu_torch``). The model runs
-on the card unless ``-d cpu`` asks for the CPU. ``--mesh`` (multi-device)
-is not ported and stops with an error.
+on the card unless ``-d cpu`` asks for the CPU.
+
+``--mesh NDxNM`` (or ``auto``: ``factor_mesh`` of the launched ranks)
+trains, validates and evaluates over a (data, model) mesh of ranks
+(``parallel/mesh.py``), one process per rank: a mesh of more than one rank
+runs under ``python -m torch.distributed.run --nproc_per_node ND*NM``
+(``torchrun``), which sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; a
+1x1 mesh also runs without it. Each rank takes ``cuda:<LOCAL_RANK>`` over
+``nccl``, or the CPU over ``gloo`` with ``-d cpu``. Only rank 0 saves and
+prints the results and ``PRIMARY METRIC:``.
 
     python -m gru4rec_tpu_torch.cli.run train.tsv -ps layers=224,... \\
         -s model.npz -t test.tsv -m 1 5 20 -lpm
     python -m gru4rec_tpu_torch.cli.run model.npz -l -t test.tsv -lpm
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m gru4rec_tpu_torch.cli.run train.tsv -ps ... -t test.tsv --mesh 2x2
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import os
 import shutil
 import sys
 import time
@@ -81,9 +92,34 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-vm", "--valid_cutoff", metavar="AT", type=int, default=20,
                         help="Cutoff for the validation metric (default 20).")
     parser.add_argument("--mesh", metavar="DATAxMODEL", type=str, default=None,
-                        help="Multi-device mesh of the JAX package; not ported to "
-                             "gru4rec_tpu_torch yet (an error).")
+                        help="Run over a (data, model) mesh of ranks: 'NDxNM' (e.g. "
+                             "2x2 = lanes over 2 ranks, item-table rows over 2) or "
+                             "'auto' to factor the launched ranks. More than one rank "
+                             "runs under `python -m torch.distributed.run "
+                             "--nproc_per_node ND*NM`, one process per rank. Applies "
+                             "to training, in-fit validation and evaluation; batch "
+                             "sizes must divide the data axis.")
     return parser
+
+
+def _parse_mesh(spec: str, device):
+    from gru4rec_tpu_torch.parallel.mesh import factor_mesh, make_mesh, world_size
+
+    if spec.lower() == "auto":
+        nd, nm = factor_mesh(world_size())
+    else:
+        try:
+            nd, nm = (int(p) for p in spec.lower().split("x"))
+        except ValueError:
+            raise SystemExit(
+                f"ERROR. --mesh must be 'NDxNM' (e.g. 2x2) or 'auto', got {spec!r}")
+    if nd * nm > 1 and "RANK" not in os.environ:
+        raise SystemExit(
+            f"ERROR. --mesh {spec} runs {nd * nm} processes, one per rank: start it as "
+            f"`python -m torch.distributed.run --nproc_per_node {nd * nm} "
+            f"-m gru4rec_tpu_torch.cli.run ...` (torchrun)")
+    print(f"Device mesh: {nd} data x {nm} model ({world_size()} ranks)")
+    return make_mesh(nd, nm, device=device)
 
 
 def main(argv=None) -> int:
@@ -92,14 +128,22 @@ def main(argv=None) -> int:
         print("ERROR. Exactly one of the following parameters must be provided: "
               "--parameter_string, --parameter_file, --load_model")
         return 1
-    if args.mesh:
-        raise SystemExit("ERROR. --mesh is not ported to gru4rec_tpu_torch yet; "
-                         "run on one device")
+    mesh = _parse_mesh(args.mesh, args.device) if args.mesh else None
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _run(args, mesh) -> int:
     from gru4rec_tpu_torch.data.loader import load_data
     from gru4rec_tpu_torch.eval import evaluate
 
     GRU4Rec = importlib.import_module(args.gru4rec_model).GRU4Rec
+    primary = mesh is None or mesh.rank == 0
 
     if args.load_model:
         print(f"Loading trained model from file: {args.path}")
@@ -134,14 +178,16 @@ def main(argv=None) -> int:
             )
         t0 = time.time()
         gru.fit(data, sample_store=args.sample_store_size,
-                store_type="cpu" if args.sample_store_on_cpu else "gpu", **fit_kwargs)
+                store_type="cpu" if args.sample_store_on_cpu else "gpu", mesh=mesh,
+                **fit_kwargs)
         print("Total training time: {:.2f}s".format(time.time() - t0))
         if gru.error_during_train:
             print("ERROR: training diverged (NaN loss)")
             return 2
         if args.save_model is not None:
-            print(f"Saving trained model to: {args.save_model}")
-            gru.savemodel(args.save_model)
+            if primary:
+                print(f"Saving trained model to: {args.save_model}")
+            gru.savemodel(args.save_model)  # rank 0 writes
 
     if args.test is not None:
         pm_index = 0 if args.primary_metric.lower() == "recall" else 1
@@ -154,8 +200,10 @@ def main(argv=None) -> int:
             res = evaluate(
                 gru, test_data, batch_size=512, cut_off=args.measure,
                 mode=args.eval_type, item_key=args.item_key,
-                session_key=args.session_key, time_key=args.time_key,
+                session_key=args.session_key, time_key=args.time_key, mesh=mesh,
             )
+            if not primary:
+                continue
             print("Evaluation took {:.2f}s".format(time.time() - t0))
             for i, c in enumerate(args.measure):
                 print("Recall@{}: {:.6f} MRR@{}: {:.6f}".format(c, res[0][i], c, res[1][i]))

@@ -22,19 +22,48 @@ Semantics kept from the JAX package:
 Ranks are always taken on ACTIVATED scores, the reference's semantics. (The
 JAX evaluator ranks full-catalog scores on pre-activation logits for
 "rank-invariant" activations, where float32 saturation of elu/tanh/sigmoid
-can change ties; this port does not copy that.)
+can change ties, and its mesh evaluator always does; this port copies
+neither.)
+
+On a mesh (``evaluate(mesh=)``, ``parallel/mesh.py``) the lanes split over
+the ``data`` axis and the item table's rows over ``model``, the training
+layout: each rank scores its lanes against the rows it owns, an elementwise
+final activation applies per shard, a softmax takes each row's max and sum
+over ``model``, and the rank is the sum over ``model`` of each shard's
+comparison counts; the counters are summed over ``data`` at the end.
+:func:`make_dist_topk_fn` serves the same way, merging per-shard top-k
+candidates.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import pandas as pd
 import torch
+import torch.distributed as dist
 
 from gru4rec_tpu_torch.data.scheduler import build_schedule
 from gru4rec_tpu_torch.data.tools import compute_offset
 from gru4rec_tpu_torch.models import gru
-from gru4rec_tpu_torch.ops.ranking import TIE_MODES, compute_ranks
+from gru4rec_tpu_torch.ops.activations import NEG_INF, get_activation
+from gru4rec_tpu_torch.ops.ranking import TIE_MODES, compute_ranks, ranks_from_counts
+from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_layout,
+                                                  make_row_gather, shard_params)
+
+# tiebreaking on a mesh: each model shard dithers from its own generator,
+# seeded ``seed + 1 + mi * SHARD_SEED_STRIDE`` (shard 0: the single-device seed)
+SHARD_SEED_STRIDE = 0x9E3779B1
+
+
+def _input_rows(params, idx, mode, gather_rows=lambda table, idx: table[idx]):
+    """The rows of the step's inputs, by input mode, from ``gather_rows``."""
+    if mode == "constrained":
+        return {"WyS": gather_rows(params["Wy"], idx)}
+    if mode == "embedding":
+        return {"E": gather_rows(params["E"], idx)}
+    return {"Wx0": gather_rows(params["Wx"][0], idx)}
 
 
 def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
@@ -51,13 +80,7 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
              item_idx=None):
         Wy = params["Wy"]
         H = [torch.where(reset[:, None], 0.0, h) for h in H]
-        Xg = torch.where(valid, in_idx, 0)
-        if mode == "constrained":
-            srows = {"WyS": Wy[Xg]}
-        elif mode == "embedding":
-            srows = {"E": params["E"][Xg]}
-        else:
-            srows = {"Wx0": params["Wx"][0][Xg]}
+        srows = _input_rows(params, torch.where(valid, in_idx, 0), mode)
         b = in_idx.shape[0]
         lanes = torch.arange(b, device=Wy.device)
         if items_subset:
@@ -105,26 +128,199 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
     return step
 
 
+def _dist_activation(cfg, mesh):
+    """``act(scores, valid)`` of a (lanes, columns) score block whose
+    columns are split over the ``model`` axis: the predict-time final
+    activation (``softmax_logit`` serves as ``softmax``), elementwise per
+    shard, or a softmax over the ``valid`` columns of every shard with the
+    row's max and sum taken over ``model`` (``masked_softmax``'s steps)."""
+    name = "softmax" if cfg.final_act == "softmax_logit" else cfg.final_act
+    if name != "softmax":
+        act = get_activation(name)
+        return lambda s, valid: act(s)
+
+    def softmax(s, valid):
+        x = torch.where(valid, s, NEG_INF)
+        m = mesh.all_reduce(torch.amax(x, dim=-1, keepdim=True), "model", dist.ReduceOp.MAX)
+        e = torch.where(valid, torch.exp(x - m), 0.0)
+        return e / mesh.all_reduce(torch.sum(e, dim=-1, keepdim=True), "model")
+
+    return softmax
+
+
+def _linear_head(cfg):
+    """``cfg`` with a linear final activation: the mesh paths score shards
+    and activate them across shards themselves."""
+    cfg = copy.copy(cfg)  # not dataclasses.replace: that re-runs validation
+    cfg.final_act = "linear"
+    return cfg
+
+
+def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_size: int,
+                        items_subset: bool = False):
+    """The per-step evaluation function on ``mesh`` (JAX's
+    ``make_dist_eval_chunk_fn``, ranking activated scores): the signature
+    of :func:`make_eval_step`, with ``params`` this rank's shards
+    (``parallel/dist_step.py::shard_params``), the schedule arguments the
+    global (batch,) step, ``H`` the rank's lane block and ``gen`` its
+    shard's dither generator. ``items_subset`` scores, as the single-device
+    step does, every lane's target and the item list, each shard the
+    columns whose rows it owns."""
+    if tie_mode not in TIE_MODES:
+        raise NotImplementedError(f"Unknown tie mode: {tie_mode!r}")
+    mode = gru.input_mode(cfg)
+    cutoffs = tuple(int(c) for c in cutoffs)
+    lo, bl = mesh.lanes(batch_size)
+    act = _dist_activation(cfg, mesh)
+    cfg_lin = _linear_head(cfg)
+
+    def step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen, item_idx=None):
+        Wy = params["Wy"]
+        dev = Wy.device
+        rows_local = Wy.shape[0]
+        r0 = mesh.mi * rows_local
+        in_l, out_l = in_idx[lo:lo + bl], out_idx[lo:lo + bl]
+        valid_l, reset_l = valid[lo:lo + bl], reset[lo:lo + bl]
+        H = [torch.where(reset_l[:, None], 0.0, h) for h in H]
+        srows = _input_rows(params, torch.where(valid_l, in_l, 0), mode,
+                            make_row_gather(r0, rows_local, mesh))
+        lanes = torch.arange(bl, device=dev)
+        if items_subset:
+            # columns [every lane's target | the item list], as on one device
+            cols = torch.cat([torch.where(valid, out_idx, 0), item_idx])
+            owned = (cols >= r0) & (cols < r0 + rows_local)
+            srows["Wy"] = torch.where(owned[:, None], Wy[torch.where(owned, cols - r0, 0)], 0.0)
+            H_new, s = gru.forward(params, srows, H, cfg_lin, M=bl, training=False,
+                                   col_valid=None, full_catalog=False)
+            yhat = act(s, owned[None, :])
+            if tie_mode == "tiebreaking":
+                yhat = yhat + torch.rand((batch_size, yhat.shape[1]), generator=gen,
+                                         device=dev)[lo:lo + bl] * 1e-10
+            t_owned = owned[lo + lanes]
+            t_local = torch.where(t_owned, yhat[lanes, lo + lanes], 0.0)
+            others = yhat[:, batch_size:]
+            count = owned[batch_size:][None, :]
+            out_v = torch.where(valid_l, out_l, -1)
+            dup = item_idx[None, :] == out_v[:, None]
+            if tie_mode == "tiebreaking":
+                count = count & ~dup  # see make_eval_step
+            self_adj = 0.0
+            if tie_mode in ("conservative", "median"):
+                self_adj = torch.where(dup.any(dim=1), 0.0,
+                                       1.0 if tie_mode == "conservative" else 0.5)
+        else:
+            col_valid = (r0 + torch.arange(rows_local, device=dev)) < n_items
+            H_new, s = gru.forward(params, srows, H, cfg_lin, M=bl, training=False,
+                                   full_catalog=True, item_valid=col_valid)
+            others = torch.where(col_valid, act(s, col_valid), -torch.inf)
+            if tie_mode == "tiebreaking":
+                others = others + torch.rand((batch_size, rows_local), generator=gen,
+                                             device=dev)[lo:lo + bl] * 1e-10
+            out_v = torch.where(valid_l, out_l, 0)
+            t_owned = (out_v >= r0) & (out_v < r0 + rows_local)
+            t_local = torch.where(
+                t_owned, others[lanes, torch.clamp(out_v - r0, 0, rows_local - 1)], 0.0)
+            count = None  # other shards' and padding columns are -inf
+            self_adj = 0.0
+        t = mesh.all_reduce(t_local, "model")[:, None]
+        cmp = [others > t]
+        if tie_mode == "conservative":
+            cmp.append(others >= t)
+        elif tie_mode == "median":
+            cmp.append(others == t)
+        if count is not None:
+            cmp = [c & count for c in cmp]
+        counts = mesh.all_reduce(torch.stack([torch.sum(c, dim=1) for c in cmp]), "model")
+        ranks = ranks_from_counts(counts[0], counts[1] if len(cmp) > 1 else None,
+                                  tie_mode) + self_adj
+        vf = valid_l.float()
+        for k, c in enumerate(cutoffs):
+            hit = (ranks <= c).float() * vf
+            rec[k] += torch.sum(hit)
+            mrr[k] += torch.sum(hit / ranks)
+        return [torch.where(valid_l[:, None], hn, ho) for hn, ho in zip(H_new, H)]
+
+    return step
+
+
+def make_dist_topk_fn(cfg, n_items: int, k: int, mesh):
+    """The top-k serving step on ``mesh`` (JAX's ``make_dist_topk_fn``):
+    ``topk(params, H, in_idx) -> (H_new, ids, scores)`` for this rank's lane
+    block, ``params`` its shards. Each shard activates its scores
+    (:func:`_dist_activation`) and takes the top k of the rows it owns; the
+    candidates are gathered over ``model`` and the top k taken again, so
+    only (lanes, k) ids and scores cross between shards."""
+    mode = gru.input_mode(cfg)
+    nm = mesh.shape["model"]
+    act = _dist_activation(cfg, mesh)
+    cfg_lin = _linear_head(cfg)
+
+    @torch.no_grad()
+    def topk(params, H, in_idx):
+        Wy = params["Wy"]
+        rows_local = Wy.shape[0]
+        r0 = mesh.mi * rows_local
+        srows = _input_rows(params, in_idx, mode, make_row_gather(r0, rows_local, mesh))
+        col_valid = (r0 + torch.arange(rows_local, device=Wy.device)) < n_items
+        H_new, s = gru.forward(params, srows, list(H), cfg_lin, M=in_idx.shape[0],
+                               training=False, full_catalog=True, item_valid=col_valid)
+        yhat = torch.where(col_valid, act(s, col_valid), -torch.inf)
+        kk = min(k, rows_local)
+        # the shard's real columns alone where they hold k (on a 1 x 1 mesh
+        # the single-device call's very input)
+        n_real = min(max(n_items - r0, 0), rows_local)
+        scores, idx = torch.topk(yhat[:, :n_real] if n_real >= kk else yhat, kk, dim=1)
+        ids = idx + r0
+        if nm > 1:
+            b = scores.shape[0]
+            merged = [mesh.all_gather(x, "model").view(nm, b, kk).transpose(0, 1)
+                      .reshape(b, nm * kk) for x in (scores, ids)]
+            scores, pos = torch.topk(merged[0], k, dim=1)
+            ids = torch.gather(merged[1], 1, pos)
+        return H_new, ids, scores
+
+    return topk
+
+
 @torch.no_grad()
 def evaluate(gru_model, test_data, items=None, session_key="SessionId",
              item_key="ItemId", time_key="Time", cut_off=[20], batch_size=100,
-             mode="standard", mesh=None):
+             mode="standard", mesh=None, _shards=None):
     """Measure Recall@N and MRR@N of a trained model (reference: evaluate_gpu,
     evaluation.py:15-147). Returns ``(recall_list, mrr_list)``, one entry per
     cutoff. ``items`` restricts rank competitors to the given item list
     (reference: evaluation.py:104-105). ``tiebreaking`` adds a 1e-10 uniform
     dither from a ``torch.Generator`` seeded with ``seed + 1``: its results
-    agree with the JAX package's in distribution, not event by event."""
+    agree with the JAX package's in distribution, not event by event.
+
+    ``mesh`` (``parallel.make_mesh``) evaluates on every rank of the mesh
+    (module doc), which must all call it; ``batch_size`` is rounded down to
+    a multiple of the data axis, as in JAX. The canonical parameters are
+    sharded for the call, or ``_shards`` (a rank's live training shards,
+    in-fit validation) are taken as they are. Every rank returns the
+    metrics. Tiebreaking dithers each model shard from its own generator."""
     if mesh is not None:
-        raise NotImplementedError("evaluate(mesh=...) is not ported to "
-                                  "gru4rec_tpu_torch yet")
+        check_mesh(mesh)
+        nd = mesh.shape["data"]
+        if batch_size % nd:
+            # metrics average per event, so the lane count does not change them
+            adj = max(nd, batch_size - batch_size % nd)
+            print(f"evaluate: batch_size {batch_size} -> {adj} "
+                  f"(must divide the {nd}-wide data axis)")
+            batch_size = adj
     if gru_model.error_during_train:
         raise Exception("Training ended with an error; model is unusable.")
     cutoffs = list(cut_off) if isinstance(cut_off, (list, tuple)) else [cut_off]
     print("Measuring Recall@{} and MRR@{}".format(
         ",".join(str(c) for c in cutoffs), ",".join(str(c) for c in cutoffs)))
     cfg = gru_model.config
-    params = gru_model.params
+    if mesh is None:
+        params = gru_model._serving_params()
+    elif _shards is None:
+        detect_scratch_layout(gru_model.params, gru_model.n_items, cfg, mesh)
+        params = shard_params(gru_model.params, cfg, mesh)
+    else:
+        params = _shards
     dev = params["Wy"].device
     itemidmap = gru_model.itemidmap
     test_data = pd.merge(
@@ -144,10 +340,16 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     if items_subset:
         item_idx = torch.from_numpy(
             itemidmap[items].values.astype(np.int32)).to(dev)
-    step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed + 1)
-    H = gru.init_hidden(cfg, batch_size, dev)
+    if mesh is None:
+        step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
+        gen.manual_seed(cfg.seed + 1)
+        H = gru.init_hidden(cfg, batch_size, dev)
+    else:
+        step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh, batch_size,
+                                   items_subset)
+        gen.manual_seed(cfg.seed + 1 + mesh.mi * SHARD_SEED_STRIDE)
+        H = gru.init_hidden(cfg, mesh.lanes(batch_size)[1], dev)
     rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
     mrr = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
     in_d, out_d, valid_d, reset_d = (torch.from_numpy(a).to(dev) for a in (
@@ -162,7 +364,10 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
             "than two events after inner-joining items to the training "
             "vocabulary"
         )
-    combo = torch.cat([rec, mrr]).cpu().numpy()
+    combo = torch.cat([rec, mrr])
+    if mesh is not None:
+        mesh.all_reduce(combo, "data")
+    combo = combo.cpu().numpy()
     k = len(cutoffs)
     return ([float(r) / n for r in combo[:k]],
             [float(m) / n for m in combo[k:2 * k]])

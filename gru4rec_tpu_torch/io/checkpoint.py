@@ -36,7 +36,7 @@ import torch
 
 from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.models import gru
-from gru4rec_tpu_torch.train.step import TrainState, init_train_state
+from gru4rec_tpu_torch.train.step import TrainState, init_train_state, make_generator
 
 BF16 = "bfloat16"  # the dtype tag: numpy's name, as the JAX package writes it
 
@@ -235,9 +235,9 @@ def _read_config(archive) -> GRU4RecConfig:
 
 
 def _is_primary_process() -> bool:
-    """Checkpoint files are written by rank 0 only. Single-process until
-    the port runs across processes: True unless ``torch.distributed`` is
-    initialized."""
+    """Checkpoint files are written by rank 0 only (on a shared filesystem
+    every rank would otherwise race-write the same path); every rank loads.
+    True when ``torch.distributed`` is not initialized."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
@@ -299,37 +299,41 @@ def save_train_checkpoint(model, state: TrainState, epoch: int, fname: str) -> N
     _write_barrier("gru4rec_save_ckpt")
 
 
-def load_train_checkpoint(fname: str, model):
+def load_train_checkpoint(fname: str, model, device=None, gen_device=None):
     """Restore a training checkpoint into ``model`` (its config, catalog,
-    parameters and training state, on ``model.device``); returns
-    ``(state, epoch)``.
+    parameters and training state, on ``device``, by default
+    ``model.device``, with the generator on ``gen_device``, by default the
+    same; ``fit(mesh=)`` loads the canonical state to the CPU and the
+    generator to the mesh's device); returns ``(state, epoch)``.
 
     The generator continues exactly when the archive holds a port
-    generator state of ``model.device``'s type. Otherwise (a JAX archive,
+    generator state of its device's type. Otherwise (a JAX archive,
     or one written on another device type) it is seeded from ``cfg.seed``
     and one line says so: weights, optimizer state, step and epoch are
     restored all the same, but the negatives and dropout masks of the
     resumed epochs are not the ones an uninterrupted run would draw."""
-    device = model.device
+    device = torch.device(model.device if device is None else device)
+    gen_device = device if gen_device is None else torch.device(gen_device)
     with np.load(fname, allow_pickle=False) as archive:
         cfg = _read_config(archive)
         model.config = cfg
         _read_model_meta(archive, model)
         params = _unflatten_params(archive, device)
         template = init_train_state(cfg, model.n_items, device)
+        gen = make_generator(cfg.seed, gen_device)
         opt_state = _read_opt_state(archive, template, "checkpoint", device)
         H = [_decode_entry(archive, f"state/H{i}").to(device)
              for i in range(len(cfg.layers))]
         saved_dev = (str(archive["state/torch_gen_device"])
                      if "state/torch_gen_device" in archive.files else None)
-        if saved_dev == device.type:
-            template.gen.set_state(torch.from_numpy(archive["state/torch_gen"].copy()))
+        if saved_dev == gen_device.type:
+            gen.set_state(torch.from_numpy(archive["state/torch_gen"].copy()))
         else:
             print(f"Resume: {fname} holds no generator state for "
-                  f"{device.type} ({'JAX PRNG key' if saved_dev is None else saved_dev}"
+                  f"{gen_device.type} ({'JAX PRNG key' if saved_dev is None else saved_dev}"
                   f" archive); negatives and dropout continue from a generator "
                   f"seeded with cfg.seed={cfg.seed}")
-        state = TrainState(params, opt_state, H, template.gen, int(archive["state/step"]))
+        state = TrainState(params, opt_state, H, gen, int(archive["state/step"]))
         epoch = int(archive["meta/epoch"])
     model.params = params
     model._train_state = state

@@ -125,11 +125,18 @@ def init_hidden(cfg: GRU4RecConfig, batch_size: int, device) -> List[torch.Tenso
                         device=device) for h in cfg.layers]
 
 
-def _dropout(x, p, gen):
+def _dropout(x, p, gen, lanes=None):
+    """Inverted dropout of ``x`` (rows = lanes). ``lanes = (lo, batch)``:
+    ``x`` holds lanes ``[lo, lo + len(x))`` of a batch of ``batch``; the
+    mask is drawn for the whole batch and its rows of ``x`` are kept, so
+    every lane block draws as one whole-batch call would."""
     if p <= 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape = x.shape if lanes is None else (lanes[1],) + tuple(x.shape[1:])
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if lanes is not None:
+        mask = mask[lanes[0]:lanes[0] + x.shape[0]]
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -179,6 +186,7 @@ def forward(
     logq_correction=None,
     full_catalog: bool = False,
     item_valid=None,
+    dropout_lanes=None,
 ):
     """Single-step forward.
 
@@ -189,7 +197,9 @@ def forward(
       embedding:    {'E': (B, d_e), 'Wy': (N, w)}
       constrained:  {'WyS': (B+N, w)}  — single concat gather
     For ``full_catalog`` scoring (predict/eval), the full (padded) Wy table
-    is used instead of gathered rows. ``gen`` draws the dropout masks.
+    is used instead of gathered rows. ``gen`` draws the dropout masks;
+    ``dropout_lanes = (lo, batch)`` says that the rows are lanes ``lo ..``
+    of a batch of ``batch`` (a mesh rank's block, ``parallel/dist_step.py``).
 
     Returns (H_new list, yhat (B, N) or (B, n_items_pad)).
     """
@@ -206,17 +216,17 @@ def forward(
         S = srows["WyS"]
         # keep the matrix part only (bias at column h_last, then padding)
         Sx = (S[:M] if not full_catalog else S)[:, :h_last]
-        y = _dropout(Sx, cfg.dropout_p_embed, gen) if drop else Sx
+        y = _dropout(Sx, cfg.dropout_p_embed, gen, dropout_lanes) if drop else Sx
         start = 0
     elif mode == "embedding":
         Sx = srows["E"]
-        y = _dropout(Sx, cfg.dropout_p_embed, gen) if drop else Sx
+        y = _dropout(Sx, cfg.dropout_p_embed, gen, dropout_lanes) if drop else Sx
         start = 0
     else:
         Sx = srows["Wx0"]
         vec = Sx + params["Bh"][0]
         h = gru_cell(vec, H[0], params["Wrz"][0], params["Wh"][0], hidden_act, layers[0], mm)
-        h = _dropout(h, cfg.dropout_p_hidden, gen) if drop else h
+        h = _dropout(h, cfg.dropout_p_hidden, gen, dropout_lanes) if drop else h
         y = h
         H_new.append(h)
         start = 1
@@ -224,7 +234,7 @@ def forward(
     for i in range(start, len(layers)):
         vec = mm(y, params["Wx"][i]) + params["Bh"][i]
         h = gru_cell(vec, H[i], params["Wrz"][i], params["Wh"][i], hidden_act, layers[i], mm)
-        h = _dropout(h, cfg.dropout_p_hidden, gen) if drop else h
+        h = _dropout(h, cfg.dropout_p_hidden, gen, dropout_lanes) if drop else h
         y = h
         H_new.append(h)
 

@@ -10,8 +10,11 @@ abort with a state dump); stateful serving through ``predict_next_batch``
 and ``predict_topk``; ``cast_for_serving``; ``savemodel`` / ``loadmodel``
 (``io/checkpoint.py``, archives shared with the JAX package). All three
 input modes train, under every ``opt_state_dtype``, including
-``"bfloat16_sr"``. Only ``mesh=`` (multi-device) is not ported and raises
-``NotImplementedError``.
+``"bfloat16_sr"``. ``fit``, ``predict_topk`` and ``evaluate`` take a
+``mesh=`` (``parallel/mesh.py``): every rank of the mesh calls them, lanes
+run data-parallel and the item tables are row-sharded over the ranks; after
+``fit(mesh=)`` the parameters are canonical CPU tensors on every rank, which
+mesh calls shard again and single-device calls copy to the model's device.
 
 The model runs on the card (``device=None`` means ``"cuda"``) unless the
 caller asks for the CPU with ``device="cpu"``; asking for CUDA where there
@@ -40,6 +43,10 @@ from gru4rec_tpu_torch.io.checkpoint import (_is_primary_process, load_model,
                                              save_train_checkpoint)
 from gru4rec_tpu_torch.models import gru
 from gru4rec_tpu_torch.ops.sampling import build_alias_table, popularity_cdf
+from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_layout,
+                                                  make_dist_chunk_fn, shard_params,
+                                                  shard_train_state, unshard_params,
+                                                  unshard_train_state)
 from gru4rec_tpu_torch.train.step import (TrainState, init_opt_state, init_train_state,
                                           make_chunk_fn, make_generator)
 from gru4rec_tpu_torch.utils.logging import get_logger
@@ -61,8 +68,13 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(f"{name} is not ported to gru4rec_tpu_torch yet")
+def _tree_to(tree, device):
+    """A dict/list tree of tensors, each moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 class _LaggedLoss:
@@ -111,6 +123,8 @@ class GRU4Rec:
         self._predict_batch = None
         self._current_session = None
         self._completed_epochs = 0
+        self._device_params = None  # (params, their copy on self.device)
+        self._mesh_params = None    # (params, mesh, this rank's shards)
 
     def set_params(self, **kwargs):
         self.config.set_params(**kwargs)
@@ -161,11 +175,21 @@ class GRU4Rec:
         * A NaN loss aborts training (checked per chunk, two chunks behind,
           and per epoch), marks the model unusable (``error_during_train``)
           and dumps the state (:meth:`_dump_nan_state`).
+        * ``mesh`` (``parallel.make_mesh``) trains on every rank of the mesh,
+          which all call ``fit`` with the same data: lanes data-parallel,
+          item tables row-sharded (``parallel/dist_step.py``), on
+          ``mesh.device``. In-fit validation runs on the live shards;
+          ``keep_best`` snapshots, checkpoints and the NaN dump are gathered
+          to the canonical layout (checkpoints written by rank 0 alone);
+          ``resume`` and ``retrain`` shard a canonical state. At the end the
+          canonical state is on every rank, as CPU tensors.
         """
         if mesh is not None:
-            _not_ported("fit(mesh=...)")
+            check_mesh(mesh)
         cfg = self.config
-        dev = self.device
+        dev = self.device if mesh is None else mesh.device
+        # where the canonical state lives: the device, or the host under a mesh
+        host = dev if mesh is None else torch.device("cpu")
         # invalidate the serving lane state: fit() ends by pointing self.H
         # at the training hidden state (cfg.batch_size lanes), which a later
         # predict call of that width must not continue from
@@ -181,7 +205,8 @@ class GRU4Rec:
         start_epoch = 0
         resumed_state = None
         if resume is not None:
-            resumed_state, start_epoch = load_train_checkpoint(resume, self)
+            resumed_state, start_epoch = load_train_checkpoint(resume, self, device=host,
+                                                               gen_device=dev)
             # everything below is built from the archive's config
             cfg = self.config
             print(f"Resuming training from {resume} at epoch {start_epoch + 1}")
@@ -243,10 +268,22 @@ class GRU4Rec:
                 opt_state = init_opt_state(cfg, self.params)
                 gen, step = make_generator(cfg.seed, dev), 0
             state = TrainState(self.params, opt_state,
-                               gru.init_hidden(cfg, cfg.batch_size, dev), gen, step)
+                               gru.init_hidden(cfg, cfg.batch_size, host), gen, step)
         else:
-            state = init_train_state(cfg, self.n_items, dev)
-        chunk_fn = make_chunk_fn(cfg, self.n_items)
+            state = init_train_state(cfg, self.n_items, host)
+            if mesh is not None:
+                state.gen = make_generator(cfg.seed, dev)
+        if mesh is not None:
+            state = shard_train_state(state, cfg, mesh)
+            chunk_fn = make_dist_chunk_fn(cfg, self.n_items, mesh)
+            lanes = mesh.lanes(cfg.batch_size)[1]
+        else:
+            if state.params["Wy"].device.type != dev.type:
+                # retraining on one device after fit(mesh=): canonical CPU state
+                state.params = _tree_to(state.params, dev)
+                state.opt_state = _tree_to(state.opt_state, dev)
+            chunk_fn = make_chunk_fn(cfg, self.n_items)
+            lanes = cfg.batch_size
 
         base_order = session_order(data, session_key, time_key, cfg.time_sort,
                                    len(offsets) - 1)
@@ -259,7 +296,7 @@ class GRU4Rec:
             prof = (_start_profile(dev)
                     if profile_dir is not None and epoch == start_epoch + 1 else None)
             t0 = time.time()
-            state.H = gru.init_hidden(cfg, cfg.batch_size, dev)
+            state.H = gru.init_hidden(cfg, lanes, dev)
             if cfg.train_random_order:
                 # each epoch's permutation is a pure function of (seed,
                 # epoch), so a resumed run replays the orders of an
@@ -289,13 +326,13 @@ class GRU4Rec:
                 # gru4rec.py:626-629): the sum of a chunk two dispatches
                 # behind, which never waits on the chunks in flight
                 if ci >= 2 and lagged.is_nan(ci - 2):
-                    _stop_profile(prof, profile_dir, epoch)
-                    return self._nan_abort(state, epoch, checkpoint_path, chunk=ci - 2)
+                    _stop_profile(prof, profile_dir, epoch, mesh)
+                    return self._nan_abort(state, epoch, checkpoint_path, mesh, chunk=ci - 2)
             total_loss = float(torch.stack(loss_parts).sum()) if loss_parts else 0.0
-            _stop_profile(prof, profile_dir, epoch)
+            _stop_profile(prof, profile_dir, epoch, mesh)
             avgc = total_loss / max(total_events, 1.0)
             if np.isnan(avgc):
-                return self._nan_abort(state, epoch, checkpoint_path)
+                return self._nan_abort(state, epoch, checkpoint_path, mesh)
             dt = time.time() - t0
             self.epoch_stats.append(
                 {"loss": avgc, "seconds": dt, "steps": T, "events": total_events})
@@ -310,15 +347,17 @@ class GRU4Rec:
             )
             if eval_data is not None and (epoch + 1) % max(eval_every, 1) == 0:
                 # self.params points at the live parameters only for the
-                # duration of the call
+                # duration of the call; a mesh evaluates the live shards
                 prev_params = self.params
-                self.params = state.params
+                if mesh is None:
+                    self.params = state.params
                 try:
                     rec, mrr = evaluate(
                         self, eval_data, cut_off=[eval_cutoff],
                         batch_size=eval_batch_size, mode=eval_mode,
                         session_key=session_key, item_key=item_key,
-                        time_key=time_key,
+                        time_key=time_key, mesh=mesh,
+                        _shards=None if mesh is None else state.params,
                     )
                 finally:
                     self.params = prev_params
@@ -332,8 +371,11 @@ class GRU4Rec:
                     best_metric, stale = metric, 0
                     if keep_best:
                         # the updates run in place: a snapshot must be a
-                        # copy, or it would follow the later epochs
-                        best_params = gru.map_params(torch.clone, state.params)
+                        # copy, or it would follow the later epochs; a mesh
+                        # gathers the canonical layout to the host
+                        best_params = (gru.map_params(torch.clone, state.params)
+                                       if mesh is None else
+                                       unshard_params(state.params, cfg, mesh))
                 else:
                     stale += 1
                     if early_stop_patience and stale >= early_stop_patience:
@@ -343,12 +385,16 @@ class GRU4Rec:
                         )
                         break
             if checkpoint_every and checkpoint_path and (epoch + 1) % checkpoint_every == 0:
-                self._train_state = state
-                self.params = state.params
-                save_train_checkpoint(self, state, epoch + 1, checkpoint_path)
+                # checkpoints hold the canonical layout; resume shards it again
+                ckpt_state = state if mesh is None else unshard_train_state(state, cfg, mesh)
+                self._train_state = ckpt_state
+                self.params = ckpt_state.params
+                save_train_checkpoint(self, ckpt_state, epoch + 1, checkpoint_path)
                 if _is_primary_process():
                     print(f"Checkpoint saved to {checkpoint_path} "
                           f"(epoch {epoch + 1})")
+        if mesh is not None:
+            state = unshard_train_state(state, cfg, mesh)
         if best_params is not None:
             # keep_best: serve/save the best-validation parameters (the
             # optimizer state stays at the last epoch)
@@ -359,15 +405,15 @@ class GRU4Rec:
         return self
 
     # ------------------------------------------------------------------ #
-    def _nan_abort(self, state, epoch, checkpoint_path, chunk=None):
+    def _nan_abort(self, state, epoch, checkpoint_path, mesh=None, chunk=None):
         print(f"Epoch {epoch}: NaN error!")
         get_logger().log("nan_abort", epoch=epoch,
                          **({} if chunk is None else {"chunk": chunk}))
         self.error_during_train = True
-        self._dump_nan_state(state, epoch, checkpoint_path)
+        self._dump_nan_state(state, epoch, checkpoint_path, mesh)
         return self
 
-    def _dump_nan_state(self, state, epoch, checkpoint_path) -> None:
+    def _dump_nan_state(self, state, epoch, checkpoint_path, mesh=None) -> None:
         """Best-effort diagnostic dump on a NaN abort: a training checkpoint
         of the live state (up to two chunks past the first NaN chunk), so
         the divergence can be replayed offline. Never masks the abort: a
@@ -375,12 +421,16 @@ class GRU4Rec:
 
         Path: ``<checkpoint_path>.nan.npz`` when checkpointing is configured,
         else ``$GRU4REC_TPU_NAN_DUMP`` (empty disables the dump), else
-        ``gru4rec_nan_dump.npz`` in the working directory."""
+        ``gru4rec_nan_dump.npz`` in the working directory. A mesh dumps
+        the state gathered to the canonical layout (every rank reaches the
+        abort together: the loss it reads is reduced over the mesh)."""
         path = (f"{checkpoint_path}.nan.npz" if checkpoint_path
                 else os.environ.get("GRU4REC_TPU_NAN_DUMP", "gru4rec_nan_dump.npz"))
         if not path:
             return
         try:
+            if mesh is not None:
+                state = unshard_train_state(state, self.config, mesh)
             save_train_checkpoint(self, state, epoch, path)
             if _is_primary_process():
                 print(f"NaN abort: diverged training state dumped to {path}")
@@ -457,6 +507,17 @@ class GRU4Rec:
         save_train_checkpoint(self, self._train_state, self._completed_epochs, fname)
 
     # ------------------------------------------------------------------ #
+    def _serving_params(self):
+        """The parameters on the model's device. After ``fit(mesh=)`` they
+        are canonical CPU tensors: a single-device call copies them to the
+        device once, and keeps the copy until the parameters change."""
+        p = self.params
+        if p["Wy"].device.type == self.device.type:
+            return p
+        if self._device_params is None or self._device_params[0] is not p:
+            self._device_params = (p, gru.map_params(lambda t: t.to(self.device), p))
+        return self._device_params[1]
+
     def _build_predict_fn(self, subset: bool):
         """``predict_step(params, H, in_idx, item_idx=None) -> (H_new,
         scores)``: one serving step, scoring the full catalog (sliced to
@@ -523,12 +584,13 @@ class GRU4Rec:
         self._reset_changed_lanes(session_ids)
         in_idx = self._item_indices(input_item_ids)
         step = self._build_predict_fn(subset)
+        params = self._serving_params()
         if subset:
-            self.H, preds = step(self.params, self.H, in_idx,
+            self.H, preds = step(params, self.H, in_idx,
                                  self._item_indices(predict_for_item_ids))
             index = predict_for_item_ids
         else:
-            self.H, preds = step(self.params, self.H, in_idx)
+            self.H, preds = step(params, self.H, in_idx)
             index = self.itemidmap.index
         return pd.DataFrame(data=preds.cpu().numpy().T, index=index)
 
@@ -539,23 +601,52 @@ class GRU4Rec:
         host. Same stateful lanes as :meth:`predict_next_batch` (the two
         share them). Returns ``(items, scores)``: an object array (batch, k)
         of raw item IDs, best first, and a float array (batch, k).
-        ``mesh=`` (multi-device serving) is not ported."""
+
+        ``mesh`` (``parallel.make_mesh``) serves on every rank of the mesh,
+        which all make the call: each rank scores its block of the lanes
+        against its row-shard of the catalog, and the per-shard top-k
+        candidates are merged (``eval/evaluation.py::make_dist_topk_fn``).
+        Every rank returns the whole (batch, k); the lane state is the one
+        the single-device calls use."""
         if self.error_during_train:
             raise Exception("Training ended with an error; model is unusable.")
-        k = min(int(k), self.n_items)
         if mesh is not None:
-            _not_ported("predict_topk(mesh=...)")
+            check_mesh(mesh)
+        k = min(int(k), self.n_items)
         self._ensure_lanes(batch)
         self._reset_changed_lanes(session_ids)
-        self.H, yhat = self._build_predict_fn(False)(
-            self.params, self.H, self._item_indices(input_item_ids))
-        scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
+        in_idx = self._item_indices(input_item_ids)
+        if mesh is not None:
+            idx, scores = self._predict_topk_dist(in_idx, k, batch, mesh)
+        else:
+            self.H, yhat = self._build_predict_fn(False)(self._serving_params(), self.H,
+                                                         in_idx)
+            scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
         idx = idx.cpu().numpy()
         # Arrow-backed string indexes (pandas>=3) reject 2-D fancy indexing:
         # take the batch x k ids flat, as objects (only those, not the whole
         # catalog per call)
         items = np.asarray(self.itemidmap.index[idx.ravel()], dtype=object)
         return items.reshape(idx.shape), scores.cpu().numpy()
+
+    def _predict_topk_dist(self, in_idx, k, batch, mesh):
+        """:meth:`predict_topk`'s step on ``mesh``: ``(ids, scores)`` of the
+        whole batch on every rank. The canonical parameters are sharded
+        once and kept until they change."""
+        from gru4rec_tpu_torch.eval.evaluation import make_dist_topk_fn
+
+        cfg = self.config
+        lo, bl = mesh.lanes(batch)
+        cache = self._mesh_params
+        if cache is None or cache[0] is not self.params or cache[1] is not mesh:
+            detect_scratch_layout(self.params, self.n_items, cfg, mesh)
+            cache = (self.params, mesh, shard_params(self.params, cfg, mesh))
+            self._mesh_params = cache
+        H = [h[lo:lo + bl].to(mesh.device) for h in self.H]
+        H_new, ids, scores = make_dist_topk_fn(cfg, self.n_items, k, mesh)(
+            cache[2], H, in_idx[lo:lo + bl].to(mesh.device))
+        self.H = [mesh.all_gather(h, "data").to(self.device) for h in H_new]
+        return mesh.all_gather(ids, "data"), mesh.all_gather(scores, "data")
 
     # ------------------------------------------------------------------ #
     def cast_for_serving(self, dtype="bfloat16") -> "GRU4Rec":
@@ -593,11 +684,13 @@ def _start_profile(device: torch.device):
     return prof
 
 
-def _stop_profile(prof, profile_dir: str, epoch: int) -> None:
+def _stop_profile(prof, profile_dir: str, epoch: int, mesh=None) -> None:
     """Stop the profiler (if one runs) and write its Chrome trace as
-    ``<profile_dir>/trace_epoch<n>.json``."""
+    ``<profile_dir>/trace_epoch<n>.json`` (``trace_epoch<n>_rank<r>.json``
+    on a mesh)."""
     if prof is None:
         return
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_epoch{epoch + 1}.json"))
+    tag = "" if mesh is None else f"_rank{mesh.rank}"
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_epoch{epoch + 1}{tag}.json"))

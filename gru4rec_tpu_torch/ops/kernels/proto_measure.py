@@ -133,7 +133,7 @@ def steps_us(step, steps=STEPS, reps=REPS):
     return float(np.median(times))
 
 
-def device_times(step, steps=STEPS, tries=4):
+def device_times(step, steps=STEPS, tries=4, names=None):
     """{kernel name: [device us, launches]} of one run of ``steps`` steps
     under ``torch.profiler``, after a warm-up run of the same steps whose
     records are dropped. The tracer loses records now and then: on the
@@ -141,10 +141,21 @@ def device_times(step, steps=STEPS, tries=4):
     (PERF.md). So a window whose most frequent operation it recorded fewer
     than ``steps - steps // 16`` times is traced again, up to ``tries``
     windows; the last one is returned, and if no window recorded a kernel
-    this raises."""
+    this raises. It also once recorded 69 launches of a kernel called 64
+    times: with ``names`` (the operations that run once per step, as
+    :func:`kernel_us` takes them) a window is traced again unless it
+    recorded each of them ``steps`` -/+ ``steps // 16`` times."""
+    slack = steps // 16
+
+    def whole(times):
+        if names is None:
+            return max(v[1] for v in times.values()) >= steps - slack
+        return all(abs(sum(v[1] for k, v in times.items() if n in k) - steps) <= slack
+                   for n in names)
+
     for _ in range(tries):
         times = _window(step, steps)
-        if times and max(v[1] for v in times.values()) >= steps - steps // 16:
+        if times and whole(times):
             break
     if not times:
         raise RuntimeError(f"the profiler recorded no CUDA kernel in {tries} windows")
@@ -245,7 +256,7 @@ def record(head, variant, step, distinct, d, card):
     ``kernel_us`` raises if any other operation ran once per call),
     ``ops_per_call`` counts the distinct operations of a step (1),
     ``ops_us_per_step`` gives each by name."""
-    times = device_times(step)
+    times = device_times(step, names=KERNEL_NAMES[variant])
     bus, nbytes = bound_us(head["K"], d, distinct)
     return {**head, "variant": variant, "us_per_step": steps_us(step),
             "kernel_us_per_launch": kernel_us(times, KERNEL_NAMES[variant], STEPS,

@@ -6,7 +6,10 @@
 * the JAX package's ``cli.run.main`` trains and saves (``final_act=linear``,
   where the JAX evaluator's logits are the activated scores, F1), and the
   port's ``-l`` on that archive prints the same metric within 1e-6;
-* ``--mesh`` fails: it is not ported.
+* ``--mesh 1x1 -d cpu`` prints the ``PRIMARY METRIC:`` of the same run
+  without a mesh; ``--mesh 2x2`` without ``torchrun`` exits with an error
+  that gives the ``torchrun`` command (tests/test_torch_paropt.py runs a
+  2-rank mesh under it).
 """
 
 import os
@@ -98,7 +101,17 @@ def test_port_cli_loads_jax_cli_archive(tsv_files, capsys):
     assert abs(got - want) <= 1e-6, (got, want)
 
 
-def test_cli_mesh_fails(tsv_files):
+def test_cli_mesh_fails(tsv_files, capsys, monkeypatch):
     train_p, test_p, _ = tsv_files
-    with pytest.raises(SystemExit, match="not ported"):
-        trun.main([train_p, "-ps", PS, "-t", test_p, "--mesh", "2x4", "-d", "cpu"])
+    args = [train_p, "-ps", PS, "-t", test_p, "-m", "5", "-lpm", "-d", "cpu"]
+    monkeypatch.setenv("GRU4REC_TPU_NAN_DUMP", "")
+    assert trun.main(args) == 0
+    want = primary_metric(capsys.readouterr().out)
+    assert trun.main(args + ["--mesh", "1x1"]) == 0
+    out = capsys.readouterr().out
+    assert "Device mesh: 1 data x 1 model (1 ranks)" in out
+    assert primary_metric(out) == want
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="torch.distributed.run --nproc_per_node 4"):
+        trun.main(args + ["--mesh", "2x2"])

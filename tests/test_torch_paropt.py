@@ -4,13 +4,14 @@
   two trials and the final run, ``-tf`` reaching every child (one JSONL
   ``epoch`` event each), after ``tests/test_cli_and_baselines.py``;
 * a trial that diverges (exit 2, no metric line) is skipped and the sweep
-  goes on; ``--mesh`` reaches the children, which refuse it;
+  goes on; ``--mesh 2x1`` starts each child as two ranks under
+  ``torch.distributed.run`` and scrapes rank 0's metric;
 * the Optuna branch under the fake ``optuna`` of ``tests/test_paropt_tpe.py``:
   failed trials caught, the best parameters, the final command; a resumed
   storage; the derived study name;
 * ``trial_env`` exports the ``-tf`` overrides and nothing of JAX;
 * ``generate_command`` names the port's CLI and forwards ``-d`` and
-  ``--mesh``.
+  ``--mesh``, under ``torch.distributed.run`` for a mesh of several ranks.
 """
 
 import json
@@ -110,10 +111,16 @@ def test_mesh_reaches_the_children(tsv_files, tmp_path):
     res, events = sweep(
         tsv_files, tmp_path,
         '{"name": "learning_rate", "dtype": "categorical", "values": [0.1]}\n',
-        "-nt", "1", "--mesh", "1x1")
-    assert res.returncode != 0
-    assert "--mesh is not ported" in res.stdout + res.stderr
-    assert "every trial failed" in res.stderr and not events
+        "-nt", "1", "--mesh", "2x1")
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.count("Device mesh: 2 data x 1 model (2 ranks)") == 4  # 2 runs x 2 ranks
+    vals = metrics(res.stdout)  # rank 0's alone
+    assert len(vals) == 1 and 0.0 <= vals[0] <= 1.0
+    assert "Best parameters: {'learning_rate': 0.1}" in res.stdout
+    final = res.stdout.split("Running final eval @[1, 5]:")[1]
+    assert final.count("Recall@1:") == 1 and final.count("Recall@5:") == 1
+    # both ranks log each epoch, as every JAX process does
+    assert [e["event"] for e in events] == ["epoch"] * 4
 
 
 @pytest.fixture
@@ -208,6 +215,11 @@ def test_generate_command_names_the_port_and_forwards_device_and_mesh():
     assert "-d" not in cmd and "--mesh" not in cmd and cmd[-1] == "-lpm"
     args.device, args.mesh = "cpu", "2x4"
     cmd = paropt.generate_command(args, "learning_rate=0.1", [1, 20], log_pm=False)
+    # eight ranks: one process each, started by torchrun
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", "8"]
+    assert cmd[:len(launch)] == launch
+    cmd = [sys.executable] + cmd[len(launch):]
     assert cmd[cmd.index("-d") + 1] == "cpu" and cmd[cmd.index("--mesh") + 1] == "2x4"
     assert cmd[cmd.index("-m", 3) + 1:cmd.index("-m", 3) + 3] == ["1", "20"]
     assert "-lpm" not in cmd
@@ -215,6 +227,10 @@ def test_generate_command_names_the_port_and_forwards_device_and_mesh():
     jcmd = jparopt.generate_command(args, "learning_rate=0.1", [1, 20], log_pm=False)
     assert [c for c in cmd if c not in ("-d", "cpu")] == \
         [c.replace("gru4rec_tpu.cli.run", "gru4rec_tpu_torch.cli.run") for c in jcmd]
+    for one_rank in ("1x1", "auto"):
+        args.mesh = one_rank
+        assert paropt.generate_command(args, "learning_rate=0.1", 20)[:3] == \
+            [sys.executable, "-m", "gru4rec_tpu_torch.cli.run"]
 
 
 def test_parameter_and_scrape_equal_the_jax_paropts():

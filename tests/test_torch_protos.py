@@ -445,6 +445,24 @@ def test_device_times_traces_a_short_window_again(windows, want, monkeypatch):
         assert pm.device_times(None, steps=64) == want
 
 
+@pytest.mark.parametrize("first, traced", [(64, 1), (60, 1), (69, 2), (59, 2)])
+def test_device_times_traces_a_window_with_extra_records_again(first, traced,
+                                                                monkeypatch):
+    """With the call's operation names, a window that recorded one of them
+    more than ``steps // 16`` times too often (69 of 64 once on the card),
+    or too rarely, is traced again; other operations may run any number of
+    times per step."""
+    from gru4rec_tpu_torch.ops.kernels import proto_measure as pm
+
+    windows = [{"void k<1>": [float(first), first], "Memset": [3.0, 192]},
+               {"void k<1>": [64.0, 64], "Memset": [3.0, 192]}]
+    seen = iter(windows)
+    calls = []
+    monkeypatch.setattr(pm, "_window", lambda step, steps: calls.append(steps) or next(seen))
+    assert pm.device_times(None, steps=64, names=("k<",)) == windows[traced - 1]
+    assert calls == [64] * traced
+
+
 def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
     """A change to a ``csrc/*.cuh`` header rebuilds every source."""
     from gru4rec_tpu_torch.ops.kernels import build

@@ -16,8 +16,9 @@ with the port fed the JAX package's negative draws, under both
   activated-score path, which the port always takes).
 
 It also checks that no module of the port, nor ``chip_smoke.py``, imports
-JAX, ``ml_dtypes`` or the JAX package, and that only ``mesh=`` (multi-device)
-still raises ``NotImplementedError``.
+JAX, ``ml_dtypes`` or the JAX package, and that a ``mesh=`` of the wrong type,
+or a mesh larger than the world, raises (``tests/test_torch_parallel.py``
+drives the mesh itself).
 """
 
 import ast
@@ -266,13 +267,21 @@ def test_fit_then_evaluate_matches_jax(opt_state_dtype, jax_models, monkeypatch)
 
 
 def test_unported_options_raise():
-    """Multi-device training and serving (``mesh=``) are not ported."""
+    """``mesh=`` takes a ``parallel.Mesh`` only, and ``make_mesh`` a world of
+    at least its size; this process is a world of one rank."""
+    from gru4rec_tpu_torch.parallel import make_mesh
+
     cfg = gru4rec_tpu_torch.GRU4RecConfig(**cfg_kwargs("float32"))
     m = gru4rec_tpu_torch.GRU4Rec(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         m.fit(markov(20), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    m.fit(markov(20), n_epochs=1)
+    with pytest.raises(TypeError, match="Mesh"):
         m.predict_topk([0], ["item_1"], mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        gru4rec_tpu_torch.evaluate(m, markov(20), mesh=object())
+    with pytest.raises(ValueError, match="needs 4 ranks, have 1"):
+        make_mesh(2, 2, device="cpu")
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
