@@ -22,7 +22,7 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    513) and one call under
    ``torch.cuda.set_sync_debug_mode("error")``; then times each main path's
    update at its shape over 64 back-to-back calls on distinct index sets
-   (``kernel_timing``, one line per mode and path, K1 twice): the device
+   (``kernel_timing``, one line per mode and path, K1 three times): the device
    time per call of every operation the wrapper issues (``ms``, from
    ``torch.profiler``; ``ops_per_call`` of them, the kernel alone), the
    wrapper's and the plain version's time per call (CUDA events);
@@ -123,8 +123,28 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``SR_ACC_REL_LIMIT`` of the float32 run's; K1 (K2) once per step on
    every rank; each rank's ``(di, mi, r0)``. A rank that fails or times
    out fails the phase;
-21. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
-   one-hot ``Wy``, P1, P2).
+21. published — the nine published configurations, loaded through the
+   port's harnesses (``examples/reproduce_published.load_config`` on the
+   six paramfile copies, ``examples/rsc15/run_rsc15.CONFIGS``) at their
+   published width, loss, ``logq``, dropout, momentum and batch, cut to one
+   epoch: each trains on ``synth_split`` at its dataset's catalog (every
+   item in training, so at least twice the catalog in events: rees46's
+   200,000 items on 400,000, the other paramfiles on 100,000, the rsc15
+   family on 74,966 at RSC15's session length) and is evaluated at batch
+   512 @1/5/10/20: a finite loss, K1 once per step (and K4 for the one-hot
+   configurations), the row-sparse updates at the shapes ``train/step.py``
+   gives them, evaluation seconds and events/s, the memory peak; then
+   ``published_learn``: each for three
+   epochs at full width on the markov chain, Recall@5 >= 0.9 (>= 0.5 for
+   the one-hot bpr-max configuration, which learns that chain slowly in
+   both packages);
+22. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
+   subprocesses: the quickstart (exit 0), ``reproduce_published
+   retailrocket`` with the paramfile as published on a synthetic split of
+   30,000 events (exit 1, ``PARITY FAIL``, a report of 8 finite metrics),
+   ``rsc15.preprocess`` on synthetic raw clicks (four TSVs);
+23. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+   one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
 then exits non-zero. The last line is
@@ -159,6 +179,10 @@ MEAN_SESSION_LEN = 5.5
 # Hidasi et al. (ICLR 2016, section 4.1) report, at the same event count
 RSC15_ITEMS = 37_483
 RSC15_MEAN_SESSION_LEN = 3.97
+# the published datasets' training catalogs (scripts/measure_shapes.py:37-52;
+# RSC15's from Hidasi et al., as above)
+PUBLISHED_ITEMS = {"retailrocket": 36_968, "rees46": 200_000, "diginetica": 43_000,
+                   "yoochoose": 37_000, "coveo": 10_000, "rsc15": RSC15_ITEMS}
 SR_SEED = (0x2545F491, 0)  # (seed, row offset) of the kernel phase's SR cases
 
 ATOL_F32, RTOL_F32 = 1e-6, 1e-5   # duplicate sums are added in another order
@@ -268,15 +292,15 @@ def phase_build():
     emit({"phase": "build", "sources": list(names), "seconds": time.time() - t0})
 
 
-def _index_sets(rng, n_items, K, B, n):
+def _index_sets(rng, n_items, K, B, n, alpha=0.4):
     """``n`` sets of K = 2B + n_sample indices shaped like one
     constrained-mode step each: 2B lane indices (a few masked to the
-    sentinel) then pop^0.4 alias draws."""
+    sentinel) then pop^alpha alias draws."""
     from gru4rec_tpu_torch.ops.sampling import build_alias_table
 
     ranks = np.arange(1, n_items + 1, dtype=np.float64)
     pop = np.maximum((1e6 / ranks**0.8).astype(np.int64), 1)
-    packed = build_alias_table(pop, 0.4)
+    packed = build_alias_table(pop, alpha)
     p = pop / pop.sum()
     n_neg = K - 2 * B
     sets = []
@@ -537,8 +561,11 @@ def phase_kernel_timing():
     the wrapper (``step_ms``) and of the plain version (``plain_ms``),
     medians over runs; and the byte bound, averaged over the index sets: the
     K indices and gradient rows read once, plus ``_row_bytes`` for each
-    distinct row. Returns {key: timing}, keyed by mode, and "K1 onehot Wy"
-    for K1 on the one-hot path's ``Wy``."""
+    distinct row. Returns {key: timing}, keyed by mode, "K1 onehot Wy"
+    for K1 on the one-hot path's ``Wy`` and "K1 rees46 Wy" for K1 without
+    a velocity on rees46's ``Wy`` (the published phase's largest update:
+    200,064 rows, width ``pad_cols(512 + 1)``, K = 2 * 240 + 2,048
+    positions, pop^0.5 negatives)."""
     import torch
 
     from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
@@ -552,6 +579,8 @@ def phase_kernel_timing():
     rsc_rows = pad_items(RSC15_ITEMS, 128)
     onehot = np.stack([_lane_set(rng, RSC15_ITEMS, 32) for _ in range(steps)])
     onehot_wy = _onehot_wy_sets(rng, RSC15_ITEMS, 32, 2048, steps)
+    rees46 = _index_sets(rng, PUBLISHED_ITEMS["rees46"], 2 * 240 + 2048, 240, steps,
+                         alpha=0.5)
     rows = {  # key: (mode, main path, adapt, momentum, state dtype, n_rows, d, index sets)
         "K1": ("K1", "train: flagship Wy", "adagrad", 0.4, "bfloat16", n_rows, d, flagship),
         "K2": ("K2", "train_sr: flagship Wy", "adagrad", 0.4, "bfloat16_sr", n_rows, d,
@@ -562,6 +591,8 @@ def phase_kernel_timing():
                onehot),
         "K1 onehot Wy": ("K1", "train_onehot: Wy", "adagrad", 0.3, "bfloat16", rsc_rows,
                          128, onehot_wy),
+        "K1 rees46 Wy": ("K1", "published: rees46 Wy", "adagrad", 0.0, "bfloat16",
+                         pad_items(PUBLISHED_ITEMS["rees46"], 128), pad_cols(512 + 1), rees46),
     }
     out = {}
     for key, (mode, path, adapt, momentum, sd, rows_n, width, sets) in rows.items():
@@ -672,23 +703,63 @@ def _check_schedules(phase, counts, expected):
                              f"native and none by numpy")
 
 
-def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
+@contextlib.contextmanager
+def _updates(on):
+    """With ``on``, counts the row-sparse updates by table shape, K and
+    state (slot: dtype) while the block runs, in the yielded dict; each
+    goes on to ``sparse_update.fused_update``, which counts its launch."""
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    counts = {}
+    fused = sparse_update.fused_update
+
+    def counted(opt, table, idx, g, st, sr_seed=None):
+        state = ",".join(f"{k}:{str(v.dtype).replace('torch.', '')}" for k, v in st.items())
+        key = f"{tuple(table.shape)} K={idx.shape[0]} {state}"
+        counts[key] = counts.get(key, 0) + 1
+        return fused(opt, table, idx, g, st, sr_seed=sr_seed)
+
+    if on:
+        sparse_update.fused_update = counted
+    try:
+        yield counts
+    finally:
+        sparse_update.fused_update = fused
+
+
+def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extra=None):
     """``GRU4Rec.fit`` for one epoch then ``evaluate``, with the kernel's
     launch counters set to 0 just before and read just after. ``per_step``
     = {mode: launches per step} that the path must show (every other mode
-    none). Returns the phase's JSON record and the fitted model."""
+    none). With ``extra`` (a dict of fields for the record), the record
+    also holds ``evaluate``'s seconds and events/s, the device memory peak
+    of the run and ``updates``: the table shape, K and state of the
+    row-sparse updates by count (``_updates``). Returns the phase's JSON
+    record and the fitted model."""
     import torch
 
     from gru4rec_tpu_torch import GRU4Rec, evaluate
     from gru4rec_tpu_torch.ops.kernels import sparse_update
 
     model = GRU4Rec(cfg, device=DEVICE)
+    details = {}
+    if extra is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     sparse_update.reset_launches()
-    with _schedules() as schedules:
+    with _schedules() as schedules, _updates(extra is not None) as updates:
         model.fit(train)
+        t_eval = time.perf_counter()
         rec, mrr = evaluate(model, test, cut_off=list(cut_off), batch_size=512)
         torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t_eval
     by_mode = dict(sparse_update.launches_by_mode)
+    if extra is not None:
+        n_eval = int((test.groupby("SessionId").size() - 1).sum())
+        details = {**extra, "eval_events": n_eval, "eval_seconds": t_eval,
+                   "eval_events_per_s": n_eval / t_eval,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "updates": updates}
     # fit builds one schedule per epoch in a random order, else one for all
     # epochs; evaluate one
     _check_schedules(phase, schedules,
@@ -724,7 +795,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20)):
               "seconds": stats["seconds"],
               "events_per_s": stats["events"] / stats["seconds"],
               "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
-              "launches": by_mode, **schedules, "card": smi_line}
+              "launches": by_mode, **schedules, **details, "card": smi_line}
     emit(record)
     return record, model
 
@@ -1955,11 +2026,224 @@ def phase_mesh_2x2_shared_card(smi_line):
         raise AssertionError(f"mesh_2x2_shared_card against one device: {out}")
 
 
+# depth: the paramfiles' 100,000 events, the rsc15 family's (batch 32) cut
+# to 40,000; each at least twice its catalog, so every item is in training
+PUBLISHED_EVENTS = 100_000
+PUBLISHED_RSC15_EVENTS = 40_000
+PUBLISHED_LEARN_EPOCHS = 3
+LEARN_RECALL5 = 0.9  # published_learn's bar: a random ranking gives 5/60
+# The one-hot bpr-max config learns the 60-item chain slowly in both
+# packages: after 3 epochs at its seed, Recall@5 is under 0.9 in JAX and
+# in the port on the CPU (tests/test_torch_published.py prints both), so
+# its bar asks for learning (six times a random ranking), not for 0.9.
+ONEHOT_BPR_LEARN_RECALL5 = 0.5
+
+
+def published_configs():
+    """The nine published configurations at their published width, loss,
+    ``logq``, dropout, momentum and batch, loaded through the port's
+    harnesses: {name: (config, dataset)}. The six paramfiles through
+    ``reproduce_published.load_config`` (name = dataset), the three CIKM'18
+    configurations from ``run_rsc15.CONFIGS`` (``rsc15:<config>``)."""
+    from gru4rec_tpu_torch import GRU4RecConfig
+    from gru4rec_tpu_torch.examples import reproduce_published
+    from gru4rec_tpu_torch.examples.rsc15 import run_rsc15
+
+    out = {ds: (reproduce_published.load_config(e["paramfile"]), ds)
+           for ds, e in sorted(reproduce_published.EXPECTED.items())}
+    for name, params, _ in run_rsc15.CONFIGS:
+        out[f"rsc15:{name}"] = (GRU4RecConfig(**params), "rsc15")
+    return out
+
+
+def _onehot(cfg):
+    return not cfg.constrained_embedding and not cfg.embedding
+
+
+def _update_shapes(cfg, n_items):
+    """The "(rows, width) K=positions" of each row-sparse update of a step
+    (``train/step.py``): ``Wy`` at width ``pad_cols(h + 1)`` takes the B
+    lane targets and the negatives, after the B inputs in the constrained
+    mode; the one-hot ``Wx0`` (width 3h) the B inputs."""
+    from gru4rec_tpu_torch.models.gru import pad_cols, pad_items
+
+    rows, B, S = pad_items(n_items, cfg.item_pad_multiple), cfg.batch_size, cfg.n_sample
+    shapes = {f"({rows}, {pad_cols(cfg.layers[-1] + 1)}) K={(1 if _onehot(cfg) else 2) * B + S}"}
+    if _onehot(cfg):
+        shapes.add(f"({rows}, {3 * cfg.layers[0]}) K={B}")
+    return shapes
+
+
+def phase_published(smi_line):
+    """Each published configuration (``published_configs``) for one epoch
+    on ``synth_split`` at its dataset's catalog (every item in training, so
+    the tables are full width), then ``evaluate`` at batch 512 and cutoffs
+    1, 5, 10, 20, the harness's protocol: a finite loss, K1 once per step
+    (and K4 for the one-hot configurations), every schedule native; the
+    record adds ``evaluate``'s seconds and events/s, the memory peak and the
+    row-sparse updates by shape. Then each for ``PUBLISHED_LEARN_EPOCHS``
+    epochs at full width on the markov chain (``published_learn``):
+    Recall@5 >= ``LEARN_RECALL5`` (``ONEHOT_BPR_LEARN_RECALL5`` for the
+    one-hot bpr-max configuration). Returns {name: record} of the first
+    part."""
+    import torch
+
+    t_phase = time.time()
+    records = {}
+    for name, (cfg, ds) in published_configs().items():
+        epochs = cfg.n_epochs
+        cfg.n_epochs = 1
+        rsc15 = ds == "rsc15"
+        n_items = PUBLISHED_ITEMS[ds]
+        n_events = max(PUBLISHED_RSC15_EVENTS if rsc15 else PUBLISHED_EVENTS, 2 * n_items)
+        mean_len = RSC15_MEAN_SESSION_LEN if rsc15 else MEAN_SESSION_LEN
+        train, test = synth_split(seed=3, n_items=n_items, mean_len=mean_len,
+                                  n_events=n_events)
+        reduced = {"n_epochs": [epochs, 1], "events": n_events,
+                   "data": f"synthetic zipf-0.8 sessions, mean length {mean_len}"}
+        per_step = {"K1": 1, "K4": 1} if _onehot(cfg) else {"K1": 1}
+        rec, model = _train("published", cfg, train, test, smi_line, per_step,
+                            cut_off=(1, 5, 10, 20),
+                            extra={"config": name, "layers": cfg.layers,
+                                   "batch_size": cfg.batch_size, "loss_fn": cfg.loss,
+                                   "logq": cfg.logq, "momentum": cfg.momentum,
+                                   "dropout": [cfg.dropout_p_embed, cfg.dropout_p_hidden],
+                                   "reduced": reduced})
+        if rec["n_items"] != n_items:
+            raise AssertionError(f"{name}: catalog is {rec['n_items']} items, not {n_items}")
+        if {k.rsplit(" ", 1)[0] for k in rec["updates"]} != _update_shapes(cfg, n_items):
+            raise AssertionError(f"{name}: updates {rec['updates']}, expected "
+                                 f"{_update_shapes(cfg, n_items)}")
+        records[name] = rec
+        del model
+        torch.cuda.empty_cache()
+    learn = {}
+    for name, (cfg, _) in published_configs().items():
+        cfg.n_epochs = PUBLISHED_LEARN_EPOCHS
+        per_step = {"K1": 1, "K4": 1} if _onehot(cfg) else {"K1": 1}
+        rec, _ = _train("published_learn", cfg, markov(800), markov(100, seed=5), smi_line,
+                        per_step, extra={"config": name})
+        bar = ONEHOT_BPR_LEARN_RECALL5 if (_onehot(cfg) and cfg.loss == "bpr-max") \
+            else LEARN_RECALL5
+        learn[name] = (rec["recall"]["@5"], bar)
+    emit({"phase": "published_summary", "seconds": time.time() - t_phase,
+          "recall20": {k: r["recall"]["@20"] for k, r in records.items()},
+          "events_per_s": {k: r["events_per_s"] for k, r in records.items()},
+          "learn_recall5": learn, "card": smi_line})
+    missed = {k: v for k, v in learn.items() if not v[0] >= v[1]}
+    if missed:
+        raise AssertionError(f"published_learn: Recall@5 under its bar {missed}")
+    return records
+
+
+EXAMPLES_EVENTS = 30_000  # reproduce_published's synthetic RetailRocket split
+EXAMPLES_ITEMS = 10_000   # a catalog that 27,000 training events hold whole
+EXAMPLES_TIMEOUT = 600
+
+
+def _example(module, args, cwd=None):
+    """``python -m gru4rec_tpu_torch.examples.<module>`` in a subprocess
+    from the checkout's root: (result, seconds)."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", f"gru4rec_tpu_torch.examples.{module}",
+                          *args], capture_output=True, text=True, timeout=EXAMPLES_TIMEOUT,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode not in (0, 1):
+        raise AssertionError(f"{module} exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    return res, time.time() - t0
+
+
+def yoochoose_clicks(path):
+    """Raw RSC15 clicks (``yoochoose-clicks.dat``): the generator of
+    ``tests/test_preprocess.py``, 400 sessions over ten days."""
+    import datetime as dt
+
+    import pandas as pd
+
+    rng = np.random.RandomState(4)
+    base = dt.datetime(2014, 4, 1)
+    rows = []
+    for s in range(400):
+        day = rng.randint(10) if rng.rand() > 0.2 else 9
+        t0 = base + dt.timedelta(days=int(day), seconds=int(rng.randint(80000)))
+        for e in range(rng.randint(1, 7)):
+            ts = t0 + dt.timedelta(seconds=e)
+            rows.append((s, ts.strftime("%Y-%m-%dT%H:%M:%S.%fZ")[:23] + "Z",
+                         int(rng.zipf(1.4) % 60)))
+    pd.DataFrame(rows).to_csv(path, header=False, index=False)
+
+
+def phase_examples(smi_line):
+    """The harnesses of ``gru4rec_tpu_torch/examples/`` as a user runs them,
+    on the card: the quickstart (exit 0, its Recall/MRR lines and top-3
+    table); ``reproduce_published retailrocket`` with the paramfile as
+    published (10 epochs, dropout 0.5 / 0.05) on a synthetic split of
+    ``EXAMPLES_EVENTS`` events written as TSV, which cannot meet the
+    published numbers: exit 1, ``PARITY FAIL`` and a report of 8 metrics,
+    each measured and finite, with ``fit_seconds``; ``rsc15.preprocess`` on
+    synthetic raw clicks: its four TSVs."""
+    import pandas as pd
+
+    t_phase = time.time()
+    out = {"phase": "examples"}
+    quick, out["quickstart_s"] = _example("quickstart_synthetic", [])
+    lines = quick.stdout.splitlines()
+    metrics = [ln for ln in lines if ln.startswith("Recall@")]
+    top3 = "top-3 next items for two live sessions:" in quick.stdout
+    out.update(quickstart_rc=quick.returncode, quickstart_metrics=metrics,
+               quickstart_top3=lines[-4:] if top3 else None)
+    with tempfile.TemporaryDirectory() as tmp:
+        train, test = synth_split(seed=2, n_items=EXAMPLES_ITEMS, n_events=EXAMPLES_EVENTS)
+        train_p, test_p, report_p = (os.path.join(tmp, f)
+                                     for f in ("train.tsv", "test.tsv", "r.json"))
+        train.to_csv(train_p, sep="\t", index=False)
+        test.to_csv(test_p, sep="\t", index=False)
+        parity, out["reproduce_s"] = _example(
+            "reproduce_published", ["retailrocket", train_p, test_p, "--out", report_p])
+        report = json.load(open(report_p)) if os.path.exists(report_p) else None
+        raw, pre_dir = os.path.join(tmp, "yoochoose-clicks.dat"), os.path.join(tmp, "rsc15")
+        os.mkdir(pre_dir)
+        yoochoose_clicks(raw)
+        pre, out["preprocess_s"] = _example("rsc15.preprocess", [raw, pre_dir])
+        tsvs = {f: len(pd.read_csv(os.path.join(pre_dir, f), sep="\t"))
+                for f in sorted(os.listdir(pre_dir))}
+        heads = {open(os.path.join(pre_dir, f)).readline().strip() for f in tsvs}
+    out.update(reproduce_rc=parity.returncode,
+               reproduce_verdict=[ln for ln in parity.stdout.splitlines()
+                                  if ln.startswith("PARITY")],
+               reproduce_events=EXAMPLES_EVENTS, reproduce_items=EXAMPLES_ITEMS,
+               report={k: report[k] for k in ("paramfile", "fit_seconds", "pass")}
+               if report else None,
+               measured={m["metric"]: m["measured"] for m in report["metrics"]}
+               if report else None,
+               preprocess_rc=pre.returncode, preprocess_rows=tsvs,
+               seconds=time.time() - t_phase, card=smi_line)
+    emit(out)
+    if quick.returncode != 0 or len(metrics) != 3 or not top3:
+        raise AssertionError(f"quickstart: rc {quick.returncode}\n{quick.stdout[-3000:]}\n"
+                             f"{quick.stderr[-3000:]}")
+    if parity.returncode != 1 or out["reproduce_verdict"] != ["PARITY FAIL"] or \
+            report is None or report["pass"] is not False or \
+            not isinstance(report.get("fit_seconds"), (int, float)) or \
+            len(report["metrics"]) != 8 or \
+            not all(math.isfinite(v) for v in out["measured"].values()):
+        raise AssertionError(f"reproduce_published: rc {parity.returncode}, report {report}"
+                             f"\n{parity.stdout[-3000:]}\n{parity.stderr[-3000:]}")
+    names = ["rsc15_test.txt", "rsc15_train_full.txt", "rsc15_train_tr.txt",
+             "rsc15_train_valid.txt"]
+    if pre.returncode != 0 or sorted(tsvs) != names or min(tsvs.values()) < 1 or \
+            heads != {"SessionId\tItemId\tTime"}:
+        raise AssertionError(f"preprocess: rc {pre.returncode}, files {tsvs}, heads {heads}"
+                             f"\n{pre.stderr[-3000:]}")
+
+
 # the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
                 "K3": ("K3", 808, "train_adam_sr"), "K4": ("K4", 248, "train_onehot"),
-                "K1 onehot Wy": ("K1", 419, "train_onehot")}
+                "K1 onehot Wy": ("K1", 419, "train_onehot"),
+                "K1 rees46 Wy": ("K1", 419, "published_rees46")}
 # P1, P2 -> the TPU kernel; their launches are the proto phase's
 PROTO_TABLE = {"P1": "scripts/proto_merged_kernel.py:31",
                "P2": "scripts/proto_v3_kernel.py:63"}
@@ -2002,6 +2286,8 @@ def main() -> int:
     phase_mesh_shard_kernel(smi_line)
     phase_mesh_1x1(flagship, paths["train"], smi_line)
     phase_mesh_2x2_shared_card(smi_line)
+    paths["published_rees46"] = phase_published(smi_line)["rees46"]
+    phase_examples(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{

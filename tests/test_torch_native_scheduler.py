@@ -9,12 +9,14 @@ CPU, against the numpy builders of both packages.
   source that does not compile raises with the compiler's output;
 * ``csrc/scheduler.cpp`` of the port is a copy of the JAX package's;
 * the package data of ``pyproject.toml`` covers every file of the port's
-  ``csrc/``;
+  ``csrc/`` and every file of ``examples/`` outside its packages' modules
+  (the paramfile copies);
 * a ``fit`` gives the same losses with and without the native builder.
 """
 
 import filecmp
 import fnmatch
+import glob
 import os
 import shutil
 import tomllib
@@ -143,6 +145,19 @@ def test_package_data_covers_every_native_source():
     assert {os.path.splitext(f)[1] for f in files} >= {".cu", ".cuh", ".cpp"}
     for f in files:
         assert any(fnmatch.fnmatch("csrc/" + f, g) for g in globs), (f, globs)
+    # examples/: modules of its packages (a directory with __init__.py) or
+    # files a glob of the package data names, as setuptools globs them
+    pkg = os.path.join(REPO, "gru4rec_tpu_torch")
+    globbed = {os.path.relpath(p, pkg) for g in globs
+               for p in glob.glob(os.path.join(pkg, g))}
+    examples = [os.path.relpath(os.path.join(root, f), pkg)
+                for root, dirs, fs in os.walk(os.path.join(pkg, "examples"))
+                if "__pycache__" not in root for f in fs]
+    assert any(f.startswith("examples/paramfiles/") for f in examples)
+    for f in examples:
+        in_package = f.endswith(".py") and os.path.exists(
+            os.path.join(pkg, os.path.dirname(f), "__init__.py"))
+        assert in_package or f in globbed, (f, globs)
 
 
 def markov(n_sessions, n_items=30, seed=0):
