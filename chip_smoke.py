@@ -46,11 +46,26 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    (GRU-100, one-hot input, batch 32, 2048 uniform negatives, adagrad +
    momentum 0.3) for one epoch on synthetic sessions over RSC15's 37,483
    items (K4 on ``Wx0``, K1 on ``Wy``);
-10. learn  — the markov-chain drive of the verify recipe through the port,
+10. graph  — every training phase runs ``fit`` through the captured step
+   (``train/step.py``: three eager warm-up steps, then one CUDA graph
+   replayed per step; each record's ``graph`` gives the replays and the
+   bytes the graph's pool reserved). Here the flagship (K1), ``train_sr``
+   (K2, its seeds read on the device), ``train_adam_sr`` (K3),
+   ``train_onehot`` (K4 and K1) and ``train_sgd`` (the flagship with plain
+   SGD, first trained through the graph here: its row-sparse update is the
+   torch-op path, no kernel) are trained again for their epoch through the
+   eager loop, the graph's plain version: the epoch loss and every
+   parameter, optimizer-state and hidden-state leaf bit-equal, the same
+   launches by mode (the counters count replays). ``graph_dropout``: the
+   RetailRocket published configuration's dropout masks, step by step,
+   equal to the eager loop's and different on every replay;
+   ``graph_seed``: K2 and K3 with the seed read on the device bit-equal to
+   the seed by value;
+11. learn  — the markov-chain drive of the verify recipe through the port,
    which must reach recall@1 >= 0.9;
-11. learn_sr — the same chain with adam, an embedding of 12 and
+12. learn_sr — the same chain with adam, an embedding of 12 and
    ``bfloat16_sr`` state (K3 on ``E`` and ``Wy``), recall@1 >= 0.9;
-12. proto   — the adagrad prototypes P1 (merged ``[t | a]`` layout) and P2
+13. proto   — the adagrad prototypes P1 (merged ``[t | a]`` layout) and P2
    (block-local loop over the real rows, ``cp.async`` ring) of
    ``ops/kernels/proto_adagrad.py``, both sort-free and one operation per
    call: each against its plain version at a small shape and at every
@@ -65,41 +80,41 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``scripts/proto_v3_kernel_torch.py`` (one line per shape and variant,
    each one operation per call) and each kernel's whole-call timing at the
    RetailRocket shape;
-13. serve   — serving on the train phase's fitted flagship model after
+14. serve   — serving on the train phase's fitted flagship model after
    ``scripts/measure_serving.py``: ``predict_topk`` (k = 20) at batch 1, 64
    and 256 (warm median ms per call, device ms per call, events/s),
    ``predict_next_batch`` once at batch 512; top-k against the full score
    frame, a changed session's lane against a fresh lane, and
    ``cast_for_serving("bfloat16")``;
-14. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
+15. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
    ``loadmodel`` on the card (archive bytes, save and load seconds; equal
    top-k scores bit for bit), then ``fit(retrain=True)`` of the loaded
    model on data with 500 unseen items (the tables grow; K1 once per step);
-15. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
+16. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
    a run resumed from a training checkpoint against two uninterrupted runs
    (``resume_diff <= repeat_diff``), with a ``profile_dir`` trace; in-fit
    validation with ``early_stop_patience`` and ``keep_best``;
-16. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
+17. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
    flagship trained, saved and evaluated from TSV files, the archive
    loaded and evaluated to the same ``PRIMARY METRIC:``, and a NaN run
    that exits 2;
-17. scheduler — the native schedule builder (``data/_native_scheduler.py``,
+18. scheduler — the native schedule builder (``data/_native_scheduler.py``,
    ``csrc/scheduler.cpp`` built by ``g++``) against the numpy builder on the
    train phase's split and on a RetailRocket-length split of 750,000 events:
    equal arrays, and the median ms of 5 builds each. Every training phase
    (``train`` to ``learn_sr``, and ``resume``) prints ``native_schedules``
    and ``numpy_schedules``, the schedules built each way while it ran: none
    by numpy;
-18. legacy_eval — on the train phase's flagship model and test split,
+19. legacy_eval — on the train phase's flagship model and test split,
    ``evaluate_sessions_batch`` (the ``predict_next_batch`` path) against
    ``evaluate`` (recall and MRR @20 within 0.03), ``Pop`` and ``ItemKNN``
    through ``evaluate_sessions``; seconds and events/s of each evaluator,
    and the device memory peak of ``evaluate``;
-19. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
+20. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
    of two trials over the flagship's learning rate and momentum, then the
    final run of the best at @1, 5, 20; ``-tf`` reaches every child (one
    JSONL ``epoch`` event each);
-20. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
+21. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
    over ``torch.distributed``, in three parts. ``mesh_shard_kernel``: K1
    and K2 on the flagship ``Wy`` and K4 on the RSC15 ``Wx0``, cut into 2
    and 4 row-shards as a mesh's model ranks hold them, each shard's call
@@ -123,7 +138,7 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``SR_ACC_REL_LIMIT`` of the float32 run's; K1 (K2) once per step on
    every rank; each rank's ``(di, mi, r0)``. A rank that fails or times
    out fails the phase;
-21. published — the nine published configurations, loaded through the
+22. published — the nine published configurations, loaded through the
    port's harnesses (``examples/reproduce_published.load_config`` on the
    six paramfile copies, ``examples/rsc15/run_rsc15.CONFIGS``) at their
    published width, loss, ``logq``, dropout, momentum and batch, cut to one
@@ -138,12 +153,12 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    epochs at full width on the markov chain, Recall@5 >= 0.9 (>= 0.5 for
    the one-hot bpr-max configuration, which learns that chain slowly in
    both packages);
-22. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
+23. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
    subprocesses: the quickstart (exit 0), ``reproduce_published
    retailrocket`` with the paramfile as published on a synthetic split of
    30,000 events (exit 1, ``PARITY FAIL``, a report of 8 finite metrics),
    ``rsc15.preprocess`` on synthetic raw clicks (four TSVs);
-23. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+24. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -156,6 +171,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -706,32 +722,81 @@ def _check_schedules(phase, counts, expected):
 @contextlib.contextmanager
 def _updates(on):
     """With ``on``, counts the row-sparse updates by table shape, K and
-    state (slot: dtype) while the block runs, in the yielded dict; each
-    goes on to ``sparse_update.fused_update``, which counts its launch."""
+    state (slot: dtype) while the block runs; each goes on to
+    ``sparse_update.fused_update``, which counts its launch. Yields two
+    dicts: the updates run eagerly, and those recorded by a graph capture
+    (run once per replay, never by the capture: :func:`_replayed`)."""
+    import torch
+
     from gru4rec_tpu_torch.ops.kernels import sparse_update
 
-    counts = {}
+    eager, captured = {}, {}
     fused = sparse_update.fused_update
 
     def counted(opt, table, idx, g, st, sr_seed=None):
         state = ",".join(f"{k}:{str(v.dtype).replace('torch.', '')}" for k, v in st.items())
         key = f"{tuple(table.shape)} K={idx.shape[0]} {state}"
+        counts = captured if torch.cuda.is_current_stream_capturing() else eager
         counts[key] = counts.get(key, 0) + 1
         return fused(opt, table, idx, g, st, sr_seed=sr_seed)
 
     if on:
         sparse_update.fused_update = counted
     try:
-        yield counts
+        yield eager, captured
     finally:
         sparse_update.fused_update = fused
+
+
+def _replayed(eager, captured, replays):
+    """The updates that ran: the eager ones and the captured ones once per
+    replay."""
+    return {k: eager.get(k, 0) + captured.get(k, 0) * replays
+            for k in sorted(set(eager) | set(captured))}
+
+
+@contextlib.contextmanager
+def _chunk_fns(eager=False):
+    """The chunk functions that ``fit`` makes while the block runs, in the
+    yielded list; with ``eager`` they run the eager loop, the captured
+    step's plain version (``make_chunk_fn(..., _eager=True)``)."""
+    from gru4rec_tpu_torch.models import gru4rec
+    from gru4rec_tpu_torch.train import step as tstep
+
+    made = []
+    make = gru4rec.make_chunk_fn
+
+    def recorded(cfg, n_items):
+        made.append(tstep.make_chunk_fn(cfg, n_items, _eager=eager))
+        return made[-1]
+
+    gru4rec.make_chunk_fn = recorded
+    try:
+        yield made
+    finally:
+        gru4rec.make_chunk_fn = make
+
+
+def _graph_record(phase, made, steps):
+    """The captured step of the one chunk function a ``fit`` made: eager
+    warm-up steps, replays (together every step), the bytes its pool
+    reserved."""
+    (fn,) = made
+    runner = fn.runner
+    if runner is None or runner.graph is None or runner.warm + runner.replays != steps:
+        raise AssertionError(f"{phase}: fit did not replay a captured step per step "
+                             f"({steps} steps, runner {runner and vars(runner)})")
+    return {"warmup_steps": runner.warm, "replays": runner.replays,
+            "pool_bytes": runner.pool_bytes}
 
 
 def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extra=None):
     """``GRU4Rec.fit`` for one epoch then ``evaluate``, with the kernel's
     launch counters set to 0 just before and read just after. ``per_step``
     = {mode: launches per step} that the path must show (every other mode
-    none). With ``extra`` (a dict of fields for the record), the record
+    none); ``fit`` must have replayed its captured step on every step but
+    the warm-up (``graph``: warm-up steps, replays, pool bytes). With
+    ``extra`` (a dict of fields for the record), the record
     also holds ``evaluate``'s seconds and events/s, the device memory peak
     of the run and ``updates``: the table shape, K and state of the
     row-sparse updates by count (``_updates``). Returns the phase's JSON
@@ -747,25 +812,27 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     sparse_update.reset_launches()
-    with _schedules() as schedules, _updates(extra is not None) as updates:
+    with _schedules() as schedules, _updates(extra is not None) as (eager, captured), \
+            _chunk_fns() as made:
         model.fit(train)
         t_eval = time.perf_counter()
         rec, mrr = evaluate(model, test, cut_off=list(cut_off), batch_size=512)
         torch.cuda.synchronize()
         t_eval = time.perf_counter() - t_eval
     by_mode = dict(sparse_update.launches_by_mode)
+    steps = sum(e["steps"] for e in model.epoch_stats)
+    graph = _graph_record(phase, made, steps)
     if extra is not None:
         n_eval = int((test.groupby("SessionId").size() - 1).sum())
         details = {**extra, "eval_events": n_eval, "eval_seconds": t_eval,
                    "eval_events_per_s": n_eval / t_eval,
                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                   "updates": updates}
+                   "updates": _replayed(eager, captured, graph["replays"])}
     # fit builds one schedule per epoch in a random order, else one for all
     # epochs; evaluate one
     _check_schedules(phase, schedules,
                      (cfg.n_epochs if cfg.train_random_order else 1) + 1)
 
-    steps = sum(e["steps"] for e in model.epoch_stats)
     stats = model.epoch_stats[-1]
     if not math.isfinite(stats["loss"]):
         raise AssertionError(f"{phase}: training loss is not finite: {stats['loss']}")
@@ -795,7 +862,8 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
               "seconds": stats["seconds"],
               "events_per_s": stats["events"] / stats["seconds"],
               "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
-              "launches": by_mode, **schedules, **details, "card": smi_line}
+              "launches": by_mode, "graph": graph, **schedules, **details,
+              "card": smi_line}
     emit(record)
     return record, model
 
@@ -840,8 +908,8 @@ def phase_train_sr(smi_line, ref, control):
     limit, since round-to-nearest drops the small increments of large
     sums."""
     train, test = synth_split()
-    rec, _ = _train("train_sr", flagship_cfg(opt_state_dtype="bfloat16_sr"), train, test,
-                 smi_line, {"K2": 1})
+    rec, model = _train("train_sr", flagship_cfg(opt_state_dtype="bfloat16_sr"), train, test,
+                        smi_line, {"K2": 1})
 
     def rel(a, b):
         return abs(a - b) / abs(b)
@@ -866,7 +934,7 @@ def phase_train_sr(smi_line, ref, control):
         raise AssertionError(f"the round-to-nearest control's accumulator sum is only "
                              f"{out['control_acc_rel_diff']:.3g} off: the limit separates "
                              f"nothing")
-    return rec
+    return rec, model
 
 
 def phase_train_adam_sr(smi_line):
@@ -876,20 +944,176 @@ def phase_train_adam_sr(smi_line):
     rate of 0.001: at the flagship's 0.05 it does not learn (PERF.md)."""
     train, test = synth_split()
     cfg = flagship_cfg(adapt="adam", learning_rate=0.001, opt_state_dtype="bfloat16_sr")
-    return _train("train_adam_sr", cfg, train, test, smi_line, {"K3": 1})[0]
+    return _train("train_adam_sr", cfg, train, test, smi_line, {"K3": 1})
 
 
 def phase_train_onehot(smi_line):
     """Path B: param_samples/rsc15_bpr-max.py on RSC15-shaped sessions (K4 on
     the 300-wide Wx0, K1 on the 128-wide Wy, each once per step)."""
     train, test = synth_split(seed=1, n_items=RSC15_ITEMS, mean_len=RSC15_MEAN_SESSION_LEN)
-    rec, _ = _train("train_onehot", rsc15_cfg(), train, test, smi_line, {"K4": 1, "K1": 1})
+    rec, model = _train("train_onehot", rsc15_cfg(), train, test, smi_line,
+                        {"K4": 1, "K1": 1})
     n_pad = rec["tables"]["Wy"][0]
     if rec["n_items"] != RSC15_ITEMS or rec["tables"]["Wx0"] != [n_pad, 300] or \
             rec["tables"]["Wy"] != [n_pad, 128]:
         raise AssertionError(f"unexpected RSC15 tables {rec['tables']} for "
                              f"{rec['n_items']} items")
-    return rec
+    return rec, model
+
+
+def phase_train_sgd(smi_line):
+    """The flagship with plain SGD (``adapt=None``): no optimizer state to
+    fuse, so the row-sparse update is the torch-op path inside the captured
+    step, and no kernel launches."""
+    train, test = synth_split()
+    return _train("train_sgd", flagship_cfg(adapt=None), train, test, smi_line, {})
+
+
+GRAPH_DROPOUT_STEPS = 6  # graph_dropout's replayed steps, after the warm-up
+
+
+def phase_graph(smi_line, runs):
+    """The captured training step against its plain version, the eager
+    loop (``make_chunk_fn(..., _eager=True)``, run through ``fit``), at
+    full width on the same data. ``runs`` = {phase: (config, train split,
+    the phase's fitted model, its record)}: the flagship (K1), ``train_sr``
+    (K2, its seeds read on the device), ``train_adam_sr`` (K3),
+    ``train_onehot`` (K4 and K1) and ``train_sgd`` (no kernel). Each is
+    trained for its epoch eagerly: the epoch loss and every parameter, optimizer-state and hidden-state
+    leaf bit-equal to the graph's, the same launches by mode; wall seconds
+    and events/s of both. Then ``graph_dropout`` and ``graph_seed``."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    def tree(model):
+        st = model._train_state
+        return dict(_leaves({"params": st.params, "opt_state": st.opt_state, "H": st.H}))
+
+    for phase, (cfg, train, graphed, graph_rec) in runs.items():
+        model = GRU4Rec(cfg, device=DEVICE)
+        sparse_update.reset_launches()
+        with _chunk_fns(eager=True) as made:
+            model.fit(train)
+        torch.cuda.synchronize()
+        by_mode = dict(sparse_update.launches_by_mode)
+        want, got = tree(graphed), tree(model)
+        differ = [k for k in want if not _same_bits(got[k], want[k])]
+        stats = model.epoch_stats[-1]
+        out = {"phase": "graph", "path": phase, "steps": stats["steps"],
+               "loss": stats["loss"], "graph_loss": graph_rec["loss"],
+               "leaves": len(want), "leaves_differ": differ,
+               "max_abs_err": max(float((got[k].double() - want[k].double()).abs().max())
+                                  for k in want),
+               "launches": by_mode, "graph_launches": graph_rec["launches"],
+               "seconds": stats["seconds"], "graph_seconds": graph_rec["seconds"],
+               "events_per_s": stats["events"] / stats["seconds"],
+               "graph_events_per_s": graph_rec["events_per_s"],
+               "graph": graph_rec["graph"], "card": smi_line}
+        emit(out)
+        if made[0].runner is not None:
+            raise AssertionError(f"graph {phase}: the eager run captured a graph")
+        if differ or out["loss"] != out["graph_loss"] or by_mode != graph_rec["launches"]:
+            raise AssertionError(f"graph {phase}: the captured step and the eager loop "
+                                 f"differ: {out}")
+        del model
+    _graph_dropout(smi_line)
+    _graph_seed()
+
+
+def _graph_dropout(smi_line):
+    """The RetailRocket published configuration (dropout 0.5 on the
+    embedding, 0.05 on the hidden state) at full width on the flagship
+    split, one step per chunk call, eagerly and through the graph: each
+    dropout output is copied into a probe, which under capture lives in the
+    graph's pool and is refilled by every replay. The masks (zero patterns)
+    of every step equal the eager loop's, differ between consecutive
+    replays, and keep about 1 - p of each layer."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.models import gru
+    from gru4rec_tpu_torch.models.gru import pad_items
+    from gru4rec_tpu_torch.train import step as tstep
+
+    cfg = published_configs()["retailrocket"][0]
+    itemidmap, sched, packed, _ = _flagship_schedule(cfg)
+    n = len(itemidmap)
+    GRU4Rec(cfg, device=DEVICE)  # the card's float32 matmuls
+    steps = tstep.WARMUP_STEPS + GRAPH_DROPOUT_STEPS
+    dropout, probes = gru._dropout, []
+
+    def probing(x, p, gen, lanes=None):
+        y = dropout(x, p, gen, lanes)
+        probes.append(y.clone())
+        return y
+
+    runs = []
+    gru._dropout = probing
+    try:
+        for eager in (True, False):
+            probes.clear()
+            state = tstep.init_train_state(cfg, n, DEVICE)
+            fn = tstep.make_chunk_fn(cfg, n, _eager=eager)
+            samp1 = torch.from_numpy(packed).to(DEVICE)
+            logp0 = torch.zeros(pad_items(n, cfg.item_pad_multiple), device=DEVICE)
+            masks = []
+            for t in range(steps):
+                fn(state, *(a[t:t + 1] for a in (sched.in_idx, sched.out_idx, sched.valid,
+                                                  sched.reset)), samp1, logp0)
+                if t == 0:
+                    per_step = len(probes)
+                masks.append([(y == 0).cpu() for y in probes[-per_step:]])
+            runs.append((masks, fn.runner))
+    finally:
+        gru._dropout = dropout
+    (eager_masks, _), (graph_masks, runner) = runs
+    replayed = graph_masks[tstep.WARMUP_STEPS:]
+    same = [all(torch.equal(a, b) for a, b in zip(x, y))
+            for x, y in zip(eager_masks, graph_masks)]
+    differ = [any(not torch.equal(a, b) for a, b in zip(x, y))
+              for x, y in zip(replayed, replayed[1:])]
+    drop_share = [[float(m.float().mean()) for m in x] for x in replayed]
+    out = {"phase": "graph_dropout", "config": "retailrocket",
+           "dropout": [cfg.dropout_p_embed, cfg.dropout_p_hidden],
+           "probes_per_step": per_step, "replays": runner.replays,
+           "equal_to_eager": same, "differ_from_previous_replay": differ,
+           "dropped_share": drop_share, "card": smi_line}
+    emit(out)
+    ps = ([] if _onehot(cfg) else [cfg.dropout_p_embed]) + \
+        [cfg.dropout_p_hidden] * len(cfg.layers)
+    if not (all(same) and all(differ) and runner.replays == GRAPH_DROPOUT_STEPS
+            and per_step == len(ps)
+            and all(abs(s - p) < 0.05 for x in drop_share for s, p in zip(x, ps))):
+        raise AssertionError(f"graph_dropout: {out}")
+
+
+def _graph_seed():
+    """K2 and K3 at the flagship shape with the stochastic-rounding seed
+    read on the device (a 0-d int32 tensor, as a replayed step passes it)
+    against the same seed by value: three calls each from the same state,
+    table and state bit-equal."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    rng = np.random.RandomState(7)
+    idx = _index_sets(rng, N_ITEMS, 2 * 80 + 2048, 80, 1)[0]
+    out = {"phase": "graph_seed", "K": len(idx)}
+    for adapt, mode in (("adagrad", "K2"), ("adam", "K3")):
+        runs = []
+        for seed in (SR_SEED[0], torch.tensor(SR_SEED[0], dtype=torch.int32, device=DEVICE)):
+            opt, table, idx_t, g, st = _make_case(adapt, 0.4, 0.0, "bfloat16_sr",
+                                                  N_ITEMS + 24, 256, idx, 3)
+            for _ in range(3):
+                sparse_update.fused_update(opt, table, idx_t, g, st, sr_seed=(seed, 0))
+            runs.append([table] + list(st.values()))
+        torch.cuda.synchronize()
+        out[mode] = all(_same_bits(a, b) for a, b in zip(*runs))
+    emit(out)
+    if not (out["K2"] and out["K3"]):
+        raise AssertionError(f"the device seed and the seed by value differ: {out}")
 
 
 def phase_learn():
@@ -2116,6 +2340,7 @@ def phase_published(smi_line):
                                  f"{_update_shapes(cfg, n_items)}")
         records[name] = rec
         del model
+        gc.collect()  # so the next configuration's peak holds none of this one
         torch.cuda.empty_cache()
     learn = {}
     for name, (cfg, _) in published_configs().items():
@@ -2129,6 +2354,7 @@ def phase_published(smi_line):
     emit({"phase": "published_summary", "seconds": time.time() - t_phase,
           "recall20": {k: r["recall"]["@20"] for k, r in records.items()},
           "events_per_s": {k: r["events_per_s"] for k, r in records.items()},
+          "graph_pool_bytes": {k: r["graph"]["pool_bytes"] for k, r in records.items()},
           "learn_recall5": learn, "card": smi_line})
     missed = {k: v for k, v in learn.items() if not v[0] >= v[1]}
     if missed:
@@ -2270,9 +2496,22 @@ def main() -> int:
     paths = {}
     paths["train"], flagship = phase_train(smi_line)
     control = phase_train_sr_control(smi_line)
-    paths["train_sr"] = phase_train_sr(smi_line, paths["train"], control)
-    paths["train_adam_sr"] = phase_train_adam_sr(smi_line)
-    paths["train_onehot"] = phase_train_onehot(smi_line)
+    paths["train_sr"], sr_model = phase_train_sr(smi_line, paths["train"], control)
+    paths["train_adam_sr"], adam_model = phase_train_adam_sr(smi_line)
+    paths["train_onehot"], onehot_model = phase_train_onehot(smi_line)
+    sgd, sgd_model = phase_train_sgd(smi_line)
+    phase_graph(smi_line, {
+        "train": (flagship_cfg(), synth_split()[0], flagship, paths["train"]),
+        "train_sr": (flagship_cfg(opt_state_dtype="bfloat16_sr"), synth_split()[0],
+                     sr_model, paths["train_sr"]),
+        "train_adam_sr": (flagship_cfg(adapt="adam", learning_rate=0.001,
+                                       opt_state_dtype="bfloat16_sr"),
+                          synth_split()[0], adam_model, paths["train_adam_sr"]),
+        "train_onehot": (rsc15_cfg(), synth_split(seed=1, n_items=RSC15_ITEMS,
+                                                  mean_len=RSC15_MEAN_SESSION_LEN)[0],
+                         onehot_model, paths["train_onehot"]),
+        "train_sgd": (flagship_cfg(adapt=None), synth_split()[0], sgd_model, sgd)})
+    del sr_model, adam_model, onehot_model, sgd_model
     phase_learn()
     paths["learn_sr"] = phase_learn_sr(smi_line)
     proto = phase_proto(smi_line)

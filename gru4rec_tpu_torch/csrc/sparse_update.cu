@@ -78,7 +78,10 @@
 // Stochastic rounding (ops/sr.py): the dither of cell (row, col) is
 // mix32(seed + (row_offset + row) * P_ROW + col * P_COL) & 0xFFFF in uint32
 // arithmetic, the JAX package's wrapping int32 hash; the stored bf16 is the
-// high half of (bits(x) + dither) & 0xFFFF0000. The unrounded float32 value
+// high half of (bits(x) + dither) & 0xFFFF0000. The seed comes by value, or
+// from device memory (`seed_ptr`, an int32 read by every head warp) where
+// the caller's seed lives on the device: a captured training step replays
+// with each step's seed (train/step.py). The unrounded float32 value
 // drives the step's update. Adam's count is stored as base-256 limbs in
 // lanes 0..2 of its block (lanes 3..127 are 0); its first moment is rounded
 // stochastically (on buffer columns d..2d-1) only in SR mode 2 (v1 > 0.99),
@@ -113,6 +116,7 @@ struct Hyper {
   float ln_v1, ln_v2;        // log of the decays (-inf for a zero decay)
   float eps;
   uint32_t seed, row_offset;  // SR dither key
+  const int32_t* seed_ptr;    // the seed on the device, or null for `seed`
   int sr_m;                   // SR also for adam's first moment
 };
 
@@ -367,6 +371,7 @@ sparse_update_kernel(Args a, Hyper h) {
   }
 
   const uint32_t hrow = h.row_offset + static_cast<uint32_t>(r);
+  const uint32_t seed = SR && h.seed_ptr ? static_cast<uint32_t>(*h.seed_ptr) : h.seed;
   const float corr1 = ADAPT == ADAM ? -expm1f(cnt * h.ln_v1) : 1.f;
   const float corr2 = ADAPT == ADAM ? -expm1f(cnt * h.ln_v2) : 1.f;
   for (int base = 0; base < d; base += kPassCols) {
@@ -414,9 +419,9 @@ sparse_update_kernel(Args a, Hyper h) {
       }
       store_vec<VEC>(trow + c, x.t + j * VEC);
       constexpr bool sr_acc = SR && (ADAPT == ADAGRAD || ADAPT == ADAM);
-      store_vec<VEC, sr_acc>(srow + c, x.s1 + j * VEC, h.seed, hrow, c);
+      store_vec<VEC, sr_acc>(srow + c, x.s1 + j * VEC, seed, hrow, c);
       if (ADAPT == ADAM && SR && h.sr_m)
-        store_vec<VEC, true>(srow + d + c, x.s2 + j * VEC, h.seed, hrow, d + c);
+        store_vec<VEC, true>(srow + d + c, x.s2 + j * VEC, seed, hrow, d + c);
       else if (ADAPT == ADADELTA || ADAPT == ADAM)
         store_vec<VEC>(srow + d + c, x.s2 + j * VEC);
       if (MOM) store_vec<VEC>(vrow + c, x.v + j * VEC);
@@ -487,20 +492,22 @@ int dispatch_state(int state_dtype, int sr, int vel_dtype, const Args& a,
 // adapt: 0 adagrad, 1 rmsprop, 2 adadelta, 3 adam. state_dtype: 0 float32,
 // 1 bfloat16. vel_dtype: -1 no momentum, 0 float32, 1 bfloat16. sr_mode: 0
 // round to nearest, 1 stochastic rounding of adagrad's acc / adam's second
-// moment, 2 also of adam's first moment; (seed, row_offset) key its dither.
+// moment, 2 also of adam's first moment; (seed, row_offset) key its dither,
+// the seed read from the int32 at seed_ptr on the device unless it is null.
 // idx64: the K raw indices are int64 (else int32). vec: 1 when every row
 // pitch and base pointer of g, table, state and velocity is aligned to 4
 // elements (the wrapper checks), else 0. Returns the launch's
 // cudaGetLastError() (0 on success).
 extern "C" int gru4rec_sparse_update(
     int adapt, int state_dtype, int vel_dtype, int sr_mode, uint32_t seed,
-    uint32_t row_offset, const void* g, const void* idx, int idx64, int K,
+    const int32_t* seed_ptr, uint32_t row_offset, const void* g, const void* idx, int idx64, int K,
     void* table, int n_rows, int d, void* state, int ds, void* vel, int vec,
     float lr, float momentum, float lmbd, float v1, float omv1, float v2,
     float omv2, float ln_v1, float ln_v2, float eps, void* stream) {
   if (K <= 0) return 0;
-  const Hyper h{lr,    momentum, lmbd, v1,   omv1,       v2,          omv2,
-                ln_v1, ln_v2,    eps,  seed, row_offset, sr_mode == 2};
+  const Hyper h{lr,    momentum, lmbd,       v1,      omv1,
+                v2,    omv2,     ln_v1,      ln_v2,   eps,
+                seed,  row_offset, seed_ptr, sr_mode == 2};
   const Args a{static_cast<const float*>(g), idx, idx64, K,
                static_cast<float*>(table), n_rows, d, state, ds, vel};
   const int sr = sr_mode != 0;

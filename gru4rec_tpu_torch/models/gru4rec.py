@@ -3,10 +3,12 @@
 PyTorch counterpart of ``gru4rec_tpu/models/gru4rec.py`` (reference:
 gru4rec.py:27-781): the same constructor keyword set and ``set_params``
 string coercion; ``fit(data)`` trains on one device through
-``train/step.py``, with JAX's options (in-fit validation with early
-stopping and ``keep_best``, training checkpoints and exact resume,
-``retrain`` over a grown catalog, a profiler trace, the per-chunk NaN
-abort with a state dump); stateful serving through ``predict_next_batch``
+``train/step.py`` (on the card, one captured CUDA graph of the training
+step replayed per step, the counterpart of JAX's one program per chunk;
+the training state changes in place only), with JAX's options (in-fit
+validation with early stopping and ``keep_best``, training checkpoints
+and exact resume, ``retrain`` over a grown catalog, a profiler trace, the
+per-chunk NaN abort with a state dump); stateful serving through ``predict_next_batch``
 and ``predict_topk``; ``cast_for_serving``; ``savemodel`` / ``loadmodel``
 (``io/checkpoint.py``, archives shared with the JAX package). All three
 input modes train, under every ``opt_state_dtype``, including
@@ -276,14 +278,14 @@ class GRU4Rec:
         if mesh is not None:
             state = shard_train_state(state, cfg, mesh)
             chunk_fn = make_dist_chunk_fn(cfg, self.n_items, mesh)
-            lanes = mesh.lanes(cfg.batch_size)[1]
         else:
             if state.params["Wy"].device.type != dev.type:
                 # retraining on one device after fit(mesh=): canonical CPU state
                 state.params = _tree_to(state.params, dev)
                 state.opt_state = _tree_to(state.opt_state, dev)
+            # on the card, every state tensor the captured step uses is
+            # bound by now: from here on the state changes in place only
             chunk_fn = make_chunk_fn(cfg, self.n_items)
-            lanes = cfg.batch_size
 
         base_order = session_order(data, session_key, time_key, cfg.time_sort,
                                    len(offsets) - 1)
@@ -296,7 +298,10 @@ class GRU4Rec:
             prof = (_start_profile(dev)
                     if profile_dir is not None and epoch == start_epoch + 1 else None)
             t0 = time.time()
-            state.H = gru.init_hidden(cfg, lanes, dev)
+            # in place: a captured training step reads and writes these
+            # buffers (train/step.py)
+            for h in state.H:
+                h.zero_()
             if cfg.train_random_order:
                 # each epoch's permutation is a pure function of (seed,
                 # epoch), so a resumed run replays the orders of an

@@ -17,7 +17,9 @@ One kernel serves the four TPU kernels, by mode:
   does;
 * K4 ``_fused_update``, the v2 grid (non-SR, any width): other widths.
 
-``launches_by_mode`` counts the launches of each mode.
+``launches_by_mode`` counts the launches of each mode. A captured CUDA
+graph replays a launch without calling the wrapper again, so the graph
+runner of ``train/step.py`` adds the captured step's tally on each replay.
 
 A call is one device operation: the kernel takes the raw int32 or int64
 indices as they are (no sort, cast, fill or scratch tensor) and dedups them
@@ -79,7 +81,7 @@ def _function():
     fn = load("sparse_update").gru4rec_sparse_update
     if fn.argtypes is None:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        fn.argtypes = [i, i, i, i, u, u, p, p, i, i, p, i, i, p, i, p, i,
+        fn.argtypes = [i, i, i, i, u, p, u, p, p, i, i, p, i, i, p, i, p, i,
                        f, f, f, f, f, f, f, f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
@@ -141,8 +143,10 @@ def fused_update(opt, table, idx, g, st, sr_seed=None):
     Updates ``table`` and the state dict ``st`` in place and returns them.
     Indices >= n (the int32-max sentinel of masked lanes) are dropped.
     ``sr_seed`` = (seed, global row offset) keys the dither of
-    stochastically rounded state (``Optimizer.apply_sparse``); the two ints
-    go to the kernel by value."""
+    stochastically rounded state (``Optimizer.apply_sparse``). The offset
+    goes to the kernel by value, and so does the seed when it is an int; a
+    seed that is a 0-d int32 tensor on the table's device is read there by
+    the kernel, so a captured step replays with each step's seed."""
     if table.device.type == "cpu":
         return opt.apply_sparse_plain(table, idx, g, st, sr_seed=sr_seed)
     if table.device.type != "cuda":
@@ -155,13 +159,19 @@ def fused_update(opt, table, idx, g, st, sr_seed=None):
     if K == 0:
         return table, st
     seed, row_offset = sr_seed if sr else (0, 0)
+    seed_ptr = None
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != table.device:
+            raise ValueError("a device seed must be one int32 on the table's device, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        seed_ptr, seed = seed.data_ptr(), 0
     rows = [g, table, state] + ([vel] if vel is not None else [])
     err = _function()(
         _ADAPT_CODES[opt.adapt], _DTYPE_CODES[state.dtype],
         -1 if vel is None else _DTYPE_CODES[vel.dtype],
         # SR mode: 1 rounds the slow slot, 2 also adam's first moment
         (2 if opt.sr_first_moment else 1) if sr else 0,
-        seed & 0xFFFFFFFF, row_offset & 0xFFFFFFFF,
+        seed & 0xFFFFFFFF, seed_ptr, row_offset & 0xFFFFFFFF,
         g.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), K,
         table.data_ptr(), n, d, state.data_ptr(), state.shape[1],
         None if vel is None else vel.data_ptr(), int(vector_path(*rows)),

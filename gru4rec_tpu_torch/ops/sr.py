@@ -24,6 +24,7 @@ values already representable in bf16 come back exactly for every ``r``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -110,3 +111,13 @@ def step_seed(seed: int, step: int, salt: int) -> int:
     h = mix32((seed & MASK32) ^ mix32(salt & MASK32))
     h = mix32((h + _mulmod32(step & MASK32, _P_COL)) & MASK32)
     return h - (1 << 32) if h >= (1 << 31) else h
+
+
+def step_seeds(seed: int, steps, salt: int) -> np.ndarray:
+    """:func:`step_seed` at each of ``steps`` (ints), as an int32 array:
+    element for element the same seeds, computed for a chunk at once on the
+    host (the hash runs on int64 arrays holding uint32 values)."""
+    steps = np.asarray(steps, dtype=np.int64) & MASK32
+    h = mix32((seed & MASK32) ^ mix32(salt & MASK32))
+    h = mix32((h + _mulmod32(steps, _P_COL)) & MASK32)
+    return h.astype(np.uint32).view(np.int32)

@@ -8,7 +8,11 @@ reference: duplicate row indices are summed first (deterministic dedup), and
 adam is textbook adam.
 
 Unlike the JAX package, updates happen IN PLACE: the parameter and state
-tensors passed in are modified and returned. Every row-sparse update of a
+tensors passed in are modified and returned, and no state entry is ever
+rebound to a new tensor, so a captured CUDA graph of the training step
+(``train/step.py``) goes on updating the buffers it recorded. Each in-place
+form does the out-of-place expression's operations in the same order, so
+the values are bit-identical to it. Every row-sparse update of a
 CUDA tensor goes through the hand-written kernel
 (``ops/kernels/sparse_update.py``); the torch-op path here
 (:meth:`Optimizer.apply_sparse_plain`) is that kernel's plain version and
@@ -42,7 +46,8 @@ def dedup_rows(idx, g):
     the k-th distinct index and the sum of its gradient rows (summed in the
     order of a stable sort); unused tail positions hold the sentinel
     (int32 max) with zero gradient. Entries of ``idx`` already equal to the
-    sentinel (masked lanes) sort to the tail and stay dropped.
+    sentinel (masked lanes) sort to the tail and stay dropped. The sums
+    are deterministic on every device.
     """
     n = idx.shape[0]
     sidx, order = torch.sort(idx.to(torch.int32), stable=True)
@@ -50,7 +55,15 @@ def dedup_rows(idx, g):
     head = torch.ones(n, dtype=torch.bool, device=idx.device)
     head[1:] = sidx[1:] != sidx[:-1]
     seg = torch.cumsum(head.to(torch.int64), 0) - 1
-    g_sum = torch.zeros_like(g).index_add_(0, seg, sg)
+    g_sum = torch.zeros_like(g)
+    if g.is_cuda:
+        # index_add_ adds with atomics on the card, in no fixed order; the
+        # sort-based accumulate adds each row's run in one fixed order, so
+        # every call (eager or replayed) gives the same bits (not always
+        # the CPU's, which adds in position order)
+        g_sum.index_put_((seg,), sg, accumulate=True)
+    else:
+        g_sum.index_add_(0, seg, sg)
     uidx = torch.full((n,), SENTINEL, dtype=torch.int32, device=idx.device)
     uidx[seg] = sidx
     return uidx, g_sum
@@ -66,9 +79,21 @@ def _take_rows(table, uidx, fill=0.0):
 
 def _put_rows(table, uidx, rows):
     """Counterpart of :func:`_take_rows`: rounds to the table's storage
-    dtype and writes in place; sentinel rows are dropped."""
+    dtype and writes in place; sentinel rows are dropped.
+
+    ``uidx`` is :func:`dedup_rows`' (distinct indices, the sentinel tail
+    last). A sentinel lane writes the first lane's row again with the value
+    that row gets, or row 0 its own value when no lane is valid, so the
+    write has a static shape: no host-side count, which a captured step
+    could not wait for."""
     valid = uidx < table.shape[0]
-    table[uidx[valid].long()] = rows[valid].to(table.dtype)
+    rows = rows.to(table.dtype)
+    head = torch.where(valid[:1], uidx[:1], 0).long()
+    fill = torch.where(valid[:1].view((1,) + (1,) * (rows.dim() - 1)), rows[:1],
+                       table.index_select(0, head))
+    target = torch.where(valid, uidx.long(), head)
+    table.index_put_((target,), torch.where(
+        valid.view((-1,) + (1,) * (rows.dim() - 1)), rows, fill))
     return table
 
 
@@ -153,31 +178,29 @@ class Optimizer:
 
     # ------------------------------------------------------------------ #
     def _adapt_dense(self, g, st):
+        """Dense adaptation, the state updated in place: ``v * s + (1 - v)
+        * x`` as ``s.mul_(v).add_((1 - v) * x)``, the same two roundings."""
         a = self.adapt
         if a == "adagrad":
-            acc = st["acc"] + g**2
-            st["acc"] = acc
+            acc = st["acc"].add_(g**2)
             return g / torch.sqrt(acc + EPSILON)
         if a == "rmsprop":
-            acc = self.v1 * st["acc"] + (1.0 - self.v1) * g**2
-            st["acc"] = acc
+            acc = st["acc"].mul_(self.v1).add_((1.0 - self.v1) * g**2)
             return g / torch.sqrt(acc + EPSILON)
         if a == "adadelta":
-            acc = self.v1 * st["acc"] + (1.0 - self.v1) * g**2
+            acc = st["acc"].mul_(self.v1).add_((1.0 - self.v1) * g**2)
             scaling = (st["upd"] + EPSILON) / (acc + EPSILON)
-            st["upd"] = self.v1 * st["upd"] + (1.0 - self.v1) * scaling * g**2
-            st["acc"] = acc
+            st["upd"].mul_(self.v1).add_((1.0 - self.v1) * scaling * g**2)
             return g * torch.sqrt(scaling)
         if a == "adam":
-            acc = self.v2 * st["acc"] + (1.0 - self.v2) * g**2
-            meang = self.v1 * st["meang"] + (1.0 - self.v1) * g
-            count = st["count"] + 1.0
+            acc = st["acc"].mul_(self.v2).add_((1.0 - self.v2) * g**2)
+            meang = st["meang"].mul_(self.v1).add_((1.0 - self.v1) * g)
+            count = st["count"].add_(1.0)
             t = count if count.dim() == 0 else count[0]
             # 1 - v^t as -expm1(t ln v): the naive form cancels
             # catastrophically when v^t ~ 1 (v2=0.999, small t)
             mhat = meang / -torch.expm1(t * _ln(self.v1))
             vhat = acc / -torch.expm1(t * _ln(self.v2))
-            st.update(acc=acc, meang=meang, count=count)
             return mhat / (torch.sqrt(vhat) + EPSILON)
         return g  # plain SGD
 
@@ -280,24 +303,25 @@ class Optimizer:
         """Update dense parameter ``p`` in place with gradient ``g``."""
         g = self._adapt_dense(g, st)
         if self.momentum > 0:
-            vel = self.momentum * st["velocity"] - self.lr * (g + self.lmbd * p)
-            st["velocity"] = vel
+            vel = st["velocity"].mul_(self.momentum).sub_(self.lr * (g + self.lmbd * p))
             p.add_(vel)
         else:
             p.copy_(p * (1.0 - self.lr * self.lmbd) - self.lr * g)
         return p, st
 
     def sr_seed_for(self, st, sr_seed):
-        """``sr_seed`` = (seed, row_offset) as ints when ``st`` is stored
-        with stochastic rounding, else None; SR state without a seed raises,
-        as in the JAX package."""
+        """``sr_seed`` = (seed, row_offset) when ``st`` is stored with
+        stochastic rounding, else None: the offset an int, the seed an int
+        or a 0-d int32 tensor (a step's seed on the device, which is never
+        read back to the host); SR state without a seed raises, as in the
+        JAX package."""
         if not self.sr_active(st):
             return None
         if sr_seed is None:
             raise ValueError("opt_state_dtype='bfloat16_sr' requires a per-step "
                              "seed (sr_seed) for the stochastic-rounding dither")
         seed, offset = sr_seed
-        return int(seed), int(offset)
+        return (seed if torch.is_tensor(seed) else int(seed)), int(offset)
 
     def apply_sparse(self, table, idx, g, st, sr_seed=None):
         """Update ``table`` rows at (possibly duplicated / sentinel-masked)
@@ -305,8 +329,9 @@ class Optimizer:
         row-sparse kernel on the card and its plain version on the CPU;
         plain SGD keeps the torch-op path (no state to fuse).
 
-        ``sr_seed`` = (seed, global row offset), Python ints, keys the
-        stochastic-rounding dither of ``bfloat16_sr`` state: the dither
+        ``sr_seed`` = (seed, global row offset) keys the
+        stochastic-rounding dither (the seed an int or a 0-d int32 tensor,
+        :meth:`sr_seed_for`) of ``bfloat16_sr`` state: the dither
         hashes (seed, row_offset + row, column), so kernel, plain version
         and the JAX package store bit-identical state for the same seed."""
         if self.adapt is None:

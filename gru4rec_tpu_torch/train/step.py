@@ -1,9 +1,17 @@
 """The training step and the chunk runner.
 
-PyTorch counterpart of ``gru4rec_tpu/train/step.py``. Where the JAX package
-fuses a chunk of ``cfg.chunk_size`` steps into one ``lax.scan`` program,
-this runs a plain Python loop over the chunk's steps; negatives for the
-whole chunk are still drawn in one call, as there.
+PyTorch counterpart of ``gru4rec_tpu/train/step.py``. The JAX package runs
+a chunk of ``cfg.chunk_size`` steps as one device program (``lax.scan``
+over the steps, the state donated as carry). Its counterpart here is a
+CUDA graph: on a CUDA device one training step is captured once per chunk
+function (once per ``fit`` call; the step's shapes are fixed) and replayed
+once per step that has a live lane, so the host issues a copy and a graph
+launch per step instead of the step's few hundred launches
+(:class:`_StepGraph`). The scan's per-step inputs are one packed int32
+stack per chunk (:class:`StackLayout`), uploaded once; negatives for the
+whole chunk are drawn in one call, as there. The eager loop over the same
+step is the graph's plain version: the CPU runs it, and on a card it is
+reached only through ``make_chunk_fn(..., _eager=True)``.
 
 Gradients w.r.t. the item tables stay row-sparse: the gathered rows are
 leaf tensors that autograd differentiates (the reference's sampled-params
@@ -14,12 +22,15 @@ updated in place.
 
 Under ``opt_state_dtype="bfloat16_sr"`` each sparse table's update gets its
 own stochastic-rounding seed per step, ``ops.sr.step_seed(cfg.seed, step,
-SR_TABLE_SALT[table])``: a host computation, so the step issues no device
-synchronisation for it.
+SR_TABLE_SALT[table])``: computed on the host for the whole chunk
+(``ops.sr.step_seeds``), carried in the stack, and read by the kernel on
+the device, so a replayed step uses its own seed and a resumed run
+reproduces every seed.
 """
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -28,8 +39,9 @@ import torch
 
 from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.models import gru
+from gru4rec_tpu_torch.ops.kernels import sparse_update
 from gru4rec_tpu_torch.ops.losses import get_loss
-from gru4rec_tpu_torch.ops.sr import step_seed
+from gru4rec_tpu_torch.ops.sr import MASK32, step_seeds
 from gru4rec_tpu_torch.ops.sampling import draw_negatives
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
 
@@ -38,6 +50,10 @@ DENSE_GROUPS = ("Wx", "Wh", "Wrz", "Bh")
 # JAX package's values): without it the tables updated in one step would
 # share one dither stream. 0x5352 = ASCII "SR".
 SR_TABLE_SALT = {"Wx0": 0x53520001, "E": 0x53520002, "Wy": 0x53520003}
+# Eager steps on the capture stream before the step is captured (PyTorch
+# sets up cuBLAS workspaces and autograd's streams on first use); they are
+# the run's first real steps, never throwaway ones.
+WARMUP_STEPS = 3
 
 
 @dataclass
@@ -106,7 +122,178 @@ def _sparse_table(params: Dict, name: str):
     return params["Wx"][0] if name == "Wx0" else params[name]
 
 
-def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
+class StackLayout:
+    """The columns of a chunk's packed int32 step stack, one row per step:
+    ``in | out | valid | reset | neg | sr seeds`` (B, B, B, B, n_sample and
+    one seed per sparse table under ``bfloat16_sr``). The JAX scan's ``xs``;
+    a replayed step reads its row from the graph's input slot."""
+
+    def __init__(self, batch_size: int, n_sample: int, seed_names=()):
+        self.B = batch_size
+        self.n_sample = n_sample
+        self.seed_names = tuple(seed_names)
+        self.width = 4 * batch_size + n_sample + len(self.seed_names)
+
+    def pack(self, in_c, out_c, valid_c, reset_c, neg, seeds, device) -> torch.Tensor:
+        """The (chunk, width) stack on ``device``: the schedule slices and
+        the seeds (``{name: (chunk,) ints}``) in one host array and one
+        upload, the negatives ((chunk, n_sample), any device) joined on
+        ``device``."""
+        chunk = in_c.shape[0]
+        host = np.empty((chunk, 4 * self.B + len(self.seed_names)), dtype=np.int32)
+        for i, a in enumerate((in_c, out_c, valid_c, reset_c)):
+            host[:, i * self.B:(i + 1) * self.B] = a
+        for i, name in enumerate(self.seed_names):
+            v = np.asarray(seeds[name], dtype=np.int64) & MASK32
+            host[:, 4 * self.B + i] = v.astype(np.uint32).view(np.int32)
+        stack = torch.from_numpy(host).to(device)
+        if self.n_sample == 0:
+            return stack
+        neg = torch.as_tensor(neg).to(device=device, dtype=torch.int32)
+        return torch.cat([stack[:, :4 * self.B], neg, stack[:, 4 * self.B:]], dim=1)
+
+    def split(self, row: torch.Tensor):
+        """Views of one step's row: ``(in, out, valid, reset, neg, seeds)``,
+        ``valid`` and ``reset`` as bool, ``neg`` None without negatives and
+        ``seeds`` ({name: 0-d int32 view}) None without seeds."""
+        B, o = self.B, 4 * self.B
+        neg = row[o:o + self.n_sample] if self.n_sample > 0 else None
+        o += self.n_sample
+        seeds = {name: row[o + i] for i, name in enumerate(self.seed_names)}
+        return (row[:B], row[B:2 * B], row[2 * B:3 * B] != 0, row[3 * B:4 * B] != 0,
+                neg, seeds or None)
+
+
+# The side stream of every warm-up and capture on a device. cuBLAS keeps a
+# workspace for each stream it runs on for the life of the process (64 MiB
+# on the card), so a stream of its own per chunk function would hold one
+# more workspace after every fit.
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = torch.device("cuda", index)
+    if key not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
+    return _CAPTURE_STREAMS[key]
+
+
+def _state_tensors(state: TrainState, logp0) -> List[torch.Tensor]:
+    """Every tensor a captured step reads or writes in place."""
+    out = [logp0] + list(state.H)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+        else:
+            out.append(tree)
+
+    walk(state.params)
+    walk(state.opt_state)
+    return out
+
+
+class _StepGraph:
+    """One training step captured as a CUDA graph and replayed per step.
+
+    The first ``WARMUP_STEPS`` live steps run eagerly on the capture stream;
+    the next is captured (capture executes nothing) and every live step
+    from then on copies its stack row into the graph's input slot and
+    replays. The graph reads and writes the state's tensors in place, adds
+    the step's weighted loss to a device scalar, and draws its dropout
+    masks from ``state.gen``, registered with the graph so that every
+    replay draws the masks the eager step would (the generator's offset
+    advances by the step's draws per replay). A failed capture raises, and
+    so does a chunk whose state tensors are not the ones captured.
+
+    The row-sparse kernel's wrapper counts its calls in
+    ``sparse_update.launches_by_mode``; the capture's tally (``tally``, by
+    mode) is taken back, since the capture launched nothing, and added
+    again on each replay, so the counters count kernel runs.
+
+    A graph destroyed while another is being captured invalidates that
+    capture (a graph that is cyclic garbage dies when the collector runs),
+    so the collector is off until the capture ends.
+    """
+
+    def __init__(self, step_fn, width: int):
+        self.step_fn = step_fn
+        self.width = width
+        self.slot = self.loss = self.stream = None  # made on the first chunk's device
+        self.graph = None
+        self.warm = 0     # eager steps before the capture
+        self.replays = 0  # replayed steps
+        self.tally = {}   # launches by mode of one replay
+        self.captured = None  # (generator, data_ptr of each state tensor)
+        self.pool_bytes = None  # device memory the capture reserved
+
+    def begin(self, state: TrainState, logp0, device: torch.device) -> None:
+        if self.slot is None:
+            self.slot = torch.zeros(self.width, dtype=torch.int32, device=device)
+            self.loss = torch.zeros((), dtype=torch.float32, device=device)
+            self.stream = _capture_stream(device)
+        if self.captured is not None and (
+                state.gen is not self.captured[0]
+                or [t.data_ptr() for t in _state_tensors(state, logp0)] != self.captured[1]):
+            raise RuntimeError("the training state's tensors are not the ones the step "
+                               "graph was captured on: rebind them before the first "
+                               "chunk, or update them in place")
+        self.loss.zero_()
+
+    def step(self, state: TrainState, row, logp0) -> None:
+        if self.graph is None:
+            if self.warm < WARMUP_STEPS:
+                self._eager(state, row, logp0)
+                return
+            self._capture(state, row, logp0)
+        self.slot.copy_(row)
+        self.graph.replay()
+        self.replays += 1
+        for mode, n in self.tally.items():
+            sparse_update.launches_by_mode[mode] += n
+
+    def end(self) -> torch.Tensor:
+        return self.loss.clone()
+
+    def _eager(self, state, row, logp0) -> None:
+        main = torch.cuda.current_stream(self.slot.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            self.loss.add_(self.step_fn(state, row, logp0))
+        main.wait_stream(self.stream)
+        self.warm += 1
+
+    def _capture(self, state, row, logp0) -> None:
+        dev = self.slot.device
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.gen)
+        before = dict(sparse_update.launches_by_mode)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.loss.add_(self.step_fn(state, self.slot, logp0))
+        finally:
+            if collecting:
+                gc.enable()
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        counts = sparse_update.launches_by_mode
+        self.tally = {k: n - before[k] for k, n in counts.items() if n != before[k]}
+        for k, n in self.tally.items():
+            counts[k] -= n
+        self.graph = graph
+        self.captured = (state.gen, [t.data_ptr() for t in _state_tensors(state, logp0)])
+
+
+def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
     """Build the per-chunk training function.
 
     Signature: ``chunk_fn(state, in_c, out_c, valid_c, reset_c, samp1, logp0,
@@ -121,6 +308,12 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
     per-step cost is divided by the *static* batch size (gru4rec.py:577) and
     the returned loss sum weights steps by live-lane count (a device
     scalar).
+
+    On a CUDA device the steps replay one captured step (:class:`_StepGraph`,
+    ``chunk_fn.runner``); the state's tensors must stay the same from the
+    first chunk on. ``_eager=True`` runs the eager loop there instead, the
+    graph's plain version (``chunk_fn.runner`` is then None), as the CPU
+    always does.
     """
     mode = gru.input_mode(cfg)
     loss_fn = get_loss(cfg.loss, cfg.n_sample, cfg.smoothing, cfg.bpreg)
@@ -129,10 +322,13 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
     n_sample = cfg.n_sample
     use_logq = bool(cfg.logq)
     sparse_names = sparse_table_names(mode)
+    layout = StackLayout(B, n_sample, sparse_names if opt.state_sr else ())
 
-    def step_fn(state, in_d, out_d, valid_d, reset_d, neg_t, Mf, logp0, seeds):
+    def step_fn(state, row, logp0):
+        in_d, out_d, valid_d, reset_d, neg_t, seeds = layout.split(row)
         params, opt_state = state.params, state.opt_state
         dev = params["Wy"].device
+        Mf = valid_d.sum(dtype=torch.float32)
         row_valid = valid_d
         if n_sample > 0:
             col_valid = torch.cat([valid_d, torch.ones(n_sample, dtype=torch.bool, device=dev)])
@@ -197,9 +393,11 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
                 opt.apply_sparse(_sparse_table(params, sname), scatter_idx[name],
                                  g, opt_state["sparse"][sname],
                                  sr_seed=None if seeds is None else (seeds[sname], 0))
-            state.H = [torch.where(valid_d[:, None], hn.detach(), ho)
-                       for hn, ho in zip(H_new, H)]
+            for h, hn, ho in zip(state.H, H_new, H):
+                h.copy_(torch.where(valid_d[:, None], hn.detach(), ho))
         return cost.detach() * Mf
+
+    runner = None if _eager else _StepGraph(step_fn, layout.width)
 
     def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1,
                  logp0, neg=None, sr_seeds=None):
@@ -208,27 +406,30 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int):
         if n_sample > 0 and neg is None:
             neg = draw_negatives(state.gen, samp1, chunk, n_sample, n_items,
                                  cfg.sample_alpha, cfg.sampler)
+        seeds = None
+        if layout.seed_names:
+            seeds = sr_seeds if sr_seeds is not None else {
+                k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
+                              SR_TABLE_SALT[k]) for k in layout.seed_names}
         # one upload per chunk; a blocking copy per step would drain the
         # stream every step
-        in_d, out_d, valid_d, reset_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                                         for a in (in_c, out_c, valid_c, reset_c))
+        stack = layout.pack(in_c, out_c, valid_c, reset_c, neg, seeds, dev)
         counts = valid_c.sum(axis=1)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        graphed = runner is not None and dev.type == "cuda"
+        if graphed:
+            runner.begin(state, logp0, dev)
+        else:
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for t in range(chunk):
             # a fully-padded step is a no-op (the JAX package's any_valid
             # gate): no update of any parameter or optimizer state
             if counts[t] > 0:
-                neg_t = neg[t].to(device=dev, dtype=torch.int32) if n_sample > 0 else None
-                seeds = None
-                if opt.state_sr:
-                    seeds = ({k: int(v[t]) for k, v in sr_seeds.items()}
-                             if sr_seeds is not None else
-                             {k: step_seed(cfg.seed, state.step, SR_TABLE_SALT[k])
-                              for k in sparse_names})
-                loss_sum = loss_sum + step_fn(state, in_d[t], out_d[t], valid_d[t],
-                                              reset_d[t], neg_t, float(counts[t]), logp0,
-                                              seeds)
+                if graphed:
+                    runner.step(state, stack[t], logp0)
+                else:
+                    loss_sum = loss_sum + step_fn(state, stack[t], logp0)
             state.step += 1
-        return loss_sum, int(counts.sum())
+        return (runner.end() if graphed else loss_sum), int(counts.sum())
 
+    chunk_fn.runner = runner
     return chunk_fn

@@ -2,15 +2,23 @@
 
 Runs ``gru4rec_tpu_torch``'s chunk function at the RetailRocket flagship
 config (chip_smoke.py's ``flagship_cfg``, on its synthetic data) on one
-CUDA device: a warm-up chunk, a timed chunk (host clock around a
-synchronised chunk of ``--steps`` steps), then the same number of steps
-under ``torch.profiler``. Prints one JSON line: the card's ``nvidia-smi``
-name and power limit, wall ms per step, device busy ms per step (the union
-of the traced kernels' intervals), the device's idle share, kernel launches
-per step, and every kernel ranked by device time; writes the chrome trace
-to ``--trace`` when given.
+CUDA device: a warm-up chunk (on a card the chunk function captures its
+step there), a timed chunk (host clock around a synchronised chunk of
+``--steps`` steps), then the same number of steps under ``torch.profiler``.
+Prints one JSON line: the card's ``nvidia-smi`` name and power limit, wall
+ms per step, device busy ms per step (the union of the traced kernels' and
+device copies' intervals), the device's idle share, the launches the host
+issued per step (CUDA API calls that put work on a stream: kernel and
+graph launches, asynchronous copies and fills), the device
+operations per step (kernels, run by a graph replay or launched alone;
+copies and fills apart), the row-sparse kernel's runs per step in the
+trace and in its launch counters (they must agree: a replay is counted
+from the captured step's tally), every kernel ranked by device time, and
+the bytes the captured step's graph pool reserved; writes the chrome trace to
+``--trace`` when given. ``--root`` profiles another checkout's package
+(for a parent-and-change comparison in one call).
 
-    python3 scripts/profile_torch_step.py --steps 64
+    python3 scripts/profile_torch_step.py --steps 64 [--root DIR] [--label NAME]
 """
 
 from __future__ import annotations
@@ -25,13 +33,21 @@ from collections import defaultdict
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# CUDA API calls (runtime and low-level) that issue work to a stream
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync", "cuMemcpyAsync",
+                 "cuMemsetD8Async", "cuMemsetD32Async", "cudaLaunchCooperativeKernel")
 
 
-def _busy_ms(kernels):
+# the row-sparse kernel's name (csrc/sparse_update.cu)
+SPARSE_KERNEL = "sparse_update_kernel"
+
+
+def _busy_ms(ops):
     """Length of the union of [ts, ts + dur) intervals, in ms."""
     total, end = 0.0, -1.0
-    for ts, dur in sorted((k["ts"], k["dur"]) for k in kernels):
+    for ts, dur in sorted((k["ts"], k["dur"]) for k in ops):
         if ts >= end:
             total += dur
             end = ts + dur
@@ -45,7 +61,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), help="the checkout whose package runs (default: this one)")
+    ap.add_argument("--label", default=None, help="a name for the record")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
@@ -54,6 +74,7 @@ def main():
     from gru4rec_tpu_torch.data.scheduler import build_schedule, session_order
     from gru4rec_tpu_torch.data.tools import compute_offset
     from gru4rec_tpu_torch.models.gru4rec import resolve_device
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
     from gru4rec_tpu_torch.ops.kernels.proto_measure import nvidia_smi_line
     from gru4rec_tpu_torch.ops.sampling import build_alias_table
     from gru4rec_tpu_torch.train import step as tstep
@@ -80,7 +101,7 @@ def main():
                                      sched.reset)]
         return chunk_fn(state, *sl, samp1, logp0)
 
-    run(0)  # warm-up: allocator, cuBLAS handles, kernel library load
+    run(0)  # warm-up: allocator, cuBLAS handles, kernel library load, capture
     torch.cuda.synchronize()
     t = time.perf_counter()
     run(S)
@@ -89,25 +110,41 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
 
+    sparse_update.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(2 * S)
         torch.cuda.synchronize()
     trace = args.trace or os.path.join(tempfile.mkdtemp(), "trace.json")
+    launched = sum(sparse_update.launches_by_mode.values())
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")
+              and "dur" in e]
     if not kernels:
         raise SystemExit("the profiler recorded no CUDA kernels")
+    launches = defaultdict(int)
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("name") in HOST_LAUNCHES:
+            launches[e["name"]] += 1
     by_name = defaultdict(lambda: [0.0, 0])
     for k in kernels:
         by_name[k["name"]][0] += k["dur"] / 1e3
         by_name[k["name"]][1] += 1
     window_ms = (max(k["ts"] + k["dur"] for k in kernels)
                  - min(k["ts"] for k in kernels)) / 1e3
-    busy = _busy_ms(kernels)
+    busy = _busy_ms(kernels + copies)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    runner = getattr(chunk_fn, "runner", None)
+    # the row-sparse kernel's runs in the trace against the wrapper's count
+    # (which a graph replay adds its captured tally to)
+    traced = sum(1 for k in kernels if SPARSE_KERNEL in k["name"])
+    if traced != launched:
+        raise SystemExit(f"the trace holds {traced} runs of {SPARSE_KERNEL}, the "
+                         f"launch counters {launched}")
     print(json.dumps({
+        "label": args.label or os.path.basename(os.path.abspath(args.root)),
         "device": torch.cuda.get_device_name(0),
         "card": nvidia_smi_line(),
         "steps": S,
@@ -115,7 +152,13 @@ def main():
         "device_busy_ms_per_step": busy / S,
         "idle_share_of_wall": 1.0 - busy / S / wall_ms,
         "kernel_window_ms_per_step": window_ms / S,
+        "host_launches_per_step": sum(launches.values()) / S,
+        "host_launches_by_call": {k: v / S for k, v in sorted(launches.items())},
         "kernel_launches_per_step": len(kernels) / S,
+        "device_copies_per_step": len(copies) / S,
+        "sparse_update_runs_per_step": traced / S,
+        "sparse_update_counted_per_step": launched / S,
+        "graph_pool_bytes": getattr(runner, "pool_bytes", None),
         "kernels": [{"name": n[:100], "ms_per_step": v[0] / S, "calls_per_step": v[1] / S}
                     for n, v in ranked],
     }))
