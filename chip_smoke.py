@@ -82,39 +82,51 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    RetailRocket shape;
 14. serve   — serving on the train phase's fitted flagship model after
    ``scripts/measure_serving.py``: ``predict_topk`` (k = 20) at batch 1, 64
-   and 256 (warm median ms per call, device ms per call, events/s),
+   and 256 through its captured call (``models/gru4rec.py::_ServeGraph``)
+   and eagerly in turns (warm median ms per call, device ms per call,
+   events/s, host launches per call: at most 6 captured),
    ``predict_next_batch`` once at batch 512; top-k against the full score
    frame, a changed session's lane against a fresh lane, and
-   ``cast_for_serving("bfloat16")``;
-15. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
+   ``cast_for_serving("bfloat16")``; the captured calls against eager
+   serving bit for bit over session changes, a change of k, a change of
+   batch and the bfloat16 cast (``graph_vs_eager``);
+15. eval_graph — the captured evaluation step against the eager loop at
+   the flagship's and rees46's widths: Recall, MRR and final lanes
+   bit-equal in the four tie modes, full catalog and subset; ms per step,
+   host launches per step, the memory peak and the graph pool's bytes of
+   the eager loop, a standalone call and a kept graph; a standalone call
+   leaves no memory allocated;
+16. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
    ``loadmodel`` on the card (archive bytes, save and load seconds; equal
    top-k scores bit for bit), then ``fit(retrain=True)`` of the loaded
    model on data with 500 unseen items (the tables grow; K1 once per step);
-16. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
+17. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
    a run resumed from a training checkpoint against two uninterrupted runs
    (``resume_diff <= repeat_diff``), with a ``profile_dir`` trace; in-fit
-   validation with ``early_stop_patience`` and ``keep_best``;
-17. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
+   validation every epoch with ``early_stop_patience`` and ``keep_best``,
+   which builds one validation schedule and captures one evaluation step
+   per ``fit`` (``valid_schedules``, ``valid_graphs``);
+18. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
    flagship trained, saved and evaluated from TSV files, the archive
    loaded and evaluated to the same ``PRIMARY METRIC:``, and a NaN run
    that exits 2;
-18. scheduler — the native schedule builder (``data/_native_scheduler.py``,
+19. scheduler — the native schedule builder (``data/_native_scheduler.py``,
    ``csrc/scheduler.cpp`` built by ``g++``) against the numpy builder on the
    train phase's split and on a RetailRocket-length split of 750,000 events:
    equal arrays, and the median ms of 5 builds each. Every training phase
    (``train`` to ``learn_sr``, and ``resume``) prints ``native_schedules``
    and ``numpy_schedules``, the schedules built each way while it ran: none
    by numpy;
-19. legacy_eval — on the train phase's flagship model and test split,
+20. legacy_eval — on the train phase's flagship model and test split,
    ``evaluate_sessions_batch`` (the ``predict_next_batch`` path) against
    ``evaluate`` (recall and MRR @20 within 0.03), ``Pop`` and ``ItemKNN``
    through ``evaluate_sessions``; seconds and events/s of each evaluator,
    and the device memory peak of ``evaluate``;
-20. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
+21. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
    of two trials over the flagship's learning rate and momentum, then the
    final run of the best at @1, 5, 20; ``-tf`` reaches every child (one
    JSONL ``epoch`` event each);
-21. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
+22. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
    over ``torch.distributed``, in three parts. ``mesh_shard_kernel``: K1
    and K2 on the flagship ``Wy`` and K4 on the RSC15 ``Wx0``, cut into 2
    and 4 row-shards as a mesh's model ranks hold them, each shard's call
@@ -138,7 +150,7 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``SR_ACC_REL_LIMIT`` of the float32 run's; K1 (K2) once per step on
    every rank; each rank's ``(di, mi, r0)``. A rank that fails or times
    out fails the phase;
-22. published — the nine published configurations, loaded through the
+23. published — the nine published configurations, loaded through the
    port's harnesses (``examples/reproduce_published.load_config`` on the
    six paramfile copies, ``examples/rsc15/run_rsc15.CONFIGS``) at their
    published width, loss, ``logq``, dropout, momentum and batch, cut to one
@@ -153,12 +165,12 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    epochs at full width on the markov chain, Recall@5 >= 0.9 (>= 0.5 for
    the one-hot bpr-max configuration, which learns that chain slowly in
    both packages);
-23. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
+24. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
    subprocesses: the quickstart (exit 0), ``reproduce_published
    retailrocket`` with the paramfile as published on a synthetic split of
    30,000 events (exit 1, ``PARITY FAIL``, a report of 8 finite metrics),
    ``rsc15.preprocess`` on synthetic raw clicks (four TSVs);
-24. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+25. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -254,6 +266,42 @@ def markov(n_sessions, n_items=60, seed=0):
             t += 1
             i = (7 * i + 3) % n_items
     return pd.DataFrame(rows, columns=["SessionId", "ItemId", "Time"])
+
+
+def eval_sessions(n_events, n_items, seed=1, mean_len=MEAN_SESSION_LEN):
+    """``scripts/measure_eval.py``'s synthetic test sessions: ``n_events``
+    events in sessions of geometric length (mean ``mean_len``, at least 2)
+    over zipf-0.8 items of an ``n_items`` catalog with integer ids."""
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    n_sessions = int(n_events / mean_len)
+    lens = 2 + rng.geometric(1.0 / (mean_len - 2.0), size=n_sessions)
+    total = int(lens.sum())
+    ranks = np.arange(1, n_items + 1, dtype=np.float64)
+    p = 1.0 / ranks**0.8
+    p /= p.sum()
+    items = rng.choice(n_items, size=total, p=p).astype(np.int64)
+    sess = np.repeat(np.arange(n_sessions, dtype=np.int64), lens)
+    return pd.DataFrame({"SessionId": sess, "ItemId": items,
+                         "Time": np.arange(total, dtype=np.int64)})
+
+
+def seeded_model(cfg, n_items):
+    """A model on the card over a catalog of ``n_items`` integer ids, its
+    weights the seeded initialisation (``cfg.seed``): evaluation and
+    serving cost and parity need no training."""
+    import pandas as pd
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.models import gru
+
+    model = GRU4Rec(cfg, device=DEVICE)
+    ids = np.arange(n_items, dtype=np.int64)
+    model.itemidmap = pd.Series(ids, index=ids, name="ItemIdx")
+    model.n_items = n_items
+    model.params = gru.init_params(cfg, n_items, model.device)
+    return model
 
 
 # bench.py::_flagship_cfg, cut to one epoch
@@ -1390,6 +1438,8 @@ def phase_proto(smi_line):
 SERVE_K = 20
 SERVE_BATCHES = (1, 64, 256)
 SERVE_REPS = 50
+SERVE_WARMUP = 3       # untimed calls: eager warm-up, capture, one replay
+SERVE_MAX_LAUNCHES = 6  # host launches of a captured call, at most
 RETRAIN_NEW_ITEMS = 500
 RETRAIN_EVENTS = 20_000
 _SESSION_IDS = itertools.count(10**9, 10**6)
@@ -1425,6 +1475,7 @@ def phase_serve(model, smi_line):
     the scores are distinct; a lane whose session changed scores as a fresh
     lane does; ``cast_for_serving("bfloat16")`` gives finite scores."""
     from gru4rec_tpu_torch.ops.kernels.proto_measure import device_times
+    from gru4rec_tpu_torch.utils.profiling import trace
 
     t_phase = time.time()
     rng = np.random.RandomState(0)
@@ -1439,23 +1490,41 @@ def phase_serve(model, smi_line):
         return catalog[rng.randint(0, n, batch)]
 
     out = {"phase": "serve", "n_items": n, "k": SERVE_K, "reps": SERVE_REPS}
+    eager = _serving_twin(model)
+    eager._serve_graphs = None  # the graphs' plain version
     for batch in SERVE_BATCHES:
         sess = _fresh_sessions(batch)
         calls = [items(batch) for _ in range(SERVE_REPS)]
-        model.predict_topk(sess, calls[-1], k=SERVE_K, batch=batch)  # warm-up
-        wall = []
-        for x in calls:
-            t0 = time.perf_counter()
-            model.predict_topk(sess, x, k=SERVE_K, batch=batch)
-            wall.append(time.perf_counter() - t0)
+        for m in (model, eager):
+            for x in calls[:SERVE_WARMUP]:  # a graph is captured at the second call
+                m.predict_topk(sess, x, k=SERVE_K, batch=batch)
+        wall = {"graph": [], "eager": []}
+        for x in calls:  # in turns
+            for way, m in (("graph", model), ("eager", eager)):
+                t0 = time.perf_counter()
+                m.predict_topk(sess, x, k=SERVE_K, batch=batch)
+                wall[way].append(time.perf_counter() - t0)
         dev = device_times(
             lambda s: model.predict_topk(sess, calls[s], k=SERVE_K, batch=batch),
             steps=SERVE_REPS)
-        ms = float(np.median(wall)) * 1e3
+        ms = float(np.median(wall["graph"])) * 1e3
         device_ms = sum(v[0] for v in dev.values()) / SERVE_REPS / 1e3
+        launches = {way: trace(lambda: [m.predict_topk(sess, x, k=SERVE_K, batch=batch)
+                                        for x in calls], SERVE_REPS)
+                    for way, m in (("graph", model), ("eager", eager))}
         out[f"topk_batch{batch}"] = {
             "ms": ms, "device_ms": device_ms, "device_share": device_ms / ms,
-            "events_per_s": batch * SERVE_REPS / sum(wall), "device_ops": len(dev)}
+            "events_per_s": batch * SERVE_REPS / sum(wall["graph"]), "device_ops": len(dev),
+            "host_launches": launches["graph"]["host_launches"],
+            "eager_ms": float(np.median(wall["eager"])) * 1e3,
+            "eager_host_launches": launches["eager"]["host_launches"],
+            "eager_device_busy_ms": launches["eager"]["device_busy_ms"],
+            "graph_device_busy_ms": launches["graph"]["device_busy_ms"],
+            "graph_pool_bytes": model._serve_graphs[("topk", batch, SERVE_K)].pool_bytes}
+        if launches["graph"]["host_launches"] > SERVE_MAX_LAUNCHES:
+            raise AssertionError(f"serve: a captured call at batch {batch} issues "
+                                 f"{launches['graph']['host_launches']} host launches")
+    del eager
     sess, x = _fresh_sessions(512), items(512)
     model.predict_next_batch(sess, x, batch=512)  # warm-up at this width
     t0 = time.perf_counter()
@@ -1508,8 +1577,218 @@ def phase_serve(model, smi_line):
                                                          / np.abs(sc_f[:, 0])))}
     if not out["bfloat16"]["finite"] or out["bfloat16"]["Wy_dtype"] != "bfloat16":
         raise AssertionError(f"bfloat16 serving: {out['bfloat16']}")
+    out["graph_vs_eager"] = _serve_graph_vs_eager(model, items)
     out.update(seconds=time.time() - t_phase, card=smi_line)
     emit(out)
+
+
+def _serve_graph_vs_eager(model, items):
+    """The captured serving calls against eager serving, both on fresh
+    twins of ``model``: ``predict_topk`` and full-catalog
+    ``predict_next_batch``, three calls of each kind in a row (a warm-up,
+    a capture, a replay), with session changes on every call, over k =
+    20, k = 10, batch 64, batch 256 and batch 64 again (fresh lanes: a new
+    capture), then the same after ``cast_for_serving("bfloat16")`` of both
+    (a new capture): ids, scores, score frames and lanes bit-equal."""
+    import torch
+
+    twins = {"graph": _serving_twin(model), "eager": _serving_twin(model)}
+    twins["eager"]._serve_graphs = None
+    rng = np.random.RandomState(3)
+    sess = {}
+    plan = [("topk", 64, SERVE_K), ("topk", 64, 10), ("next", 64, None),
+            ("topk", 256, SERVE_K), ("next", 256, None), ("topk", 64, SERVE_K)]
+    calls, diff = 0, 0.0
+    for cast in (False, True):
+        if cast:
+            for m in twins.values():
+                m.cast_for_serving("bfloat16")
+            if twins["graph"]._serve_graphs:
+                raise AssertionError("cast_for_serving kept graphs of the old weights")
+        for kind, batch, k in plan:
+            for _ in range(3):
+                s = sess.get(batch, _fresh_sessions(batch))
+                s = np.where(rng.rand(batch) < 0.3, _fresh_sessions(batch), s)
+                sess[batch] = s
+                x = items(batch)
+                got = {}
+                for way, m in twins.items():
+                    if kind == "topk":
+                        got[way] = m.predict_topk(s, x, k=k, batch=batch)
+                    else:
+                        got[way] = (m.predict_next_batch(s, x, batch=batch).values,)
+                    got[way] += tuple(h.cpu().numpy() for h in m.H)
+                calls += 1
+                for a, b in zip(got["graph"], got["eager"]):
+                    if a.dtype == object:
+                        if not np.array_equal(a, b):
+                            raise AssertionError(f"serve: top-k ids differ ({kind}, {batch}, {k})")
+                    else:
+                        diff = max(diff, float(np.abs(a.astype(np.float64)
+                                                      - b.astype(np.float64)).max()))
+    graphs = twins["graph"]._serve_graphs
+    out = {"calls": calls, "max_abs_err": diff,
+           "replays": {"/".join(map(str, k)): g.replays for k, g in graphs.items()},
+           "bound_dtype": str(twins["graph"].params["Wy"].dtype).replace("torch.", "")}
+    if diff != 0.0 or not all(g.replays for g in graphs.values()) or \
+            set(graphs) != {("topk", 64, SERVE_K), ("topk", 64, 10), ("next", 64),
+                            ("topk", 256, SERVE_K), ("next", 256)}:
+        raise AssertionError(f"serve: captured calls against eager serving: {out}")
+    del twins
+    torch.cuda.empty_cache()
+    return out
+
+
+EVAL_GRAPH_EVENTS = 8_000   # each eval_graph evaluation's synthetic test events
+EVAL_GRAPH_SUBSET = 1_000   # the subset path's item list
+EVAL_GRAPH_REPS = 3         # timed calls of each way, in turns
+EVAL_BATCH = 512
+EVAL_CUTOFFS = [1, 5, 10, 20]
+
+
+@contextlib.contextmanager
+def _eval_lanes():
+    """Records, while the block runs, the lanes each evaluation step is
+    given (``make_eval_step``'s steps write them in place): the last entry
+    holds the final lanes of the last call."""
+    from gru4rec_tpu_torch.eval import evaluation
+
+    seen = []
+    make = evaluation.make_eval_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def wrapped(params, H, *rest):
+            seen.append(H)
+            return step(params, H, *rest)
+
+        return wrapped
+
+    evaluation.make_eval_step = recording
+    try:
+        yield seen
+    finally:
+        evaluation.make_eval_step = make
+
+
+def phase_eval_graph(flagship, smi_line):
+    """The captured evaluation step (``eval/evaluation.py::_EvalGraph``)
+    against its plain version, the eager loop (``evaluate(_eager=True)``),
+    at two widths: the train phase's fitted flagship model (36,968 items,
+    GRU-224, elu-0.5) and the rees46 published configuration at its width
+    (200,000 items, GRU-512, softmax) from its seed, each on
+    ``EVAL_GRAPH_EVENTS`` synthetic test events (``eval_sessions``) at batch
+    512 and cutoffs 1, 5, 10, 20. In all four tie modes, on the full catalog
+    and on a subset of ``EVAL_GRAPH_SUBSET`` items: Recall, MRR and the
+    final lanes bit-equal (``max_abs_err`` 0.0), every step after the
+    warm-up replayed. Then, in the standard mode, three ways in turns: the
+    eager loop; ``graph``, the standalone call, which captures its step and
+    frees the graph when it returns; ``graph_kept``, the graph kept across
+    calls as ``fit`` keeps it. For each: the median ms per step (512
+    lanes) and per 512 scored events, the host launches, device busy ms
+    and kernels per step (``utils/profiling.trace``), the memory peak of a
+    call; the graph pool's bytes. A standalone call leaves
+    ``memory_allocated`` as it found it (``memory_reserved`` is printed
+    beside it: the call gives its pool back to the device)."""
+    import torch
+
+    from gru4rec_tpu_torch import evaluate
+    from gru4rec_tpu_torch.eval.evaluation import _eval_schedule
+    from gru4rec_tpu_torch.ops.ranking import TIE_MODES
+    from gru4rec_tpu_torch.utils.cuda_graph import WARMUP_STEPS
+    from gru4rec_tpu_torch.utils.profiling import trace
+
+    t_phase = time.time()
+    from gru4rec_tpu_torch.examples import reproduce_published
+
+    rees46 = reproduce_published.load_config(
+        reproduce_published.EXPECTED["rees46"]["paramfile"])
+    models = {"flagship": flagship,
+              "rees46": seeded_model(rees46, PUBLISHED_ITEMS["rees46"])}
+    for name, model in models.items():
+        catalog = model.itemidmap.index.values
+        test = eval_sessions(EVAL_GRAPH_EVENTS, model.n_items)
+        test["ItemId"] = catalog[test["ItemId"].values]
+        rng = np.random.RandomState(2)
+        subset = catalog[rng.choice(model.n_items, EVAL_GRAPH_SUBSET, replace=False)]
+        steps = _eval_schedule(model, test, EVAL_BATCH, "SessionId", "ItemId", "Time")
+        events, steps = steps.n_events, steps.n_steps
+        kw = dict(cut_off=EVAL_CUTOFFS, batch_size=EVAL_BATCH)
+        cases = {}
+        with _eval_lanes() as seen:
+            for mode in TIE_MODES:
+                for items in ("full", "subset"):
+                    args = dict(kw, mode=mode, items=subset if items == "subset" else None)
+                    want = evaluate(model, test, _eager=True, **args)
+                    H_want = seen[-1]
+                    graphs = {}
+                    got = evaluate(model, test, _graphs=graphs, **args)
+                    (runner,) = graphs.values()
+                    if runner.warm != WARMUP_STEPS or runner.warm + runner.replays != steps:
+                        raise AssertionError(f"eval_graph {name} {mode}/{items}: "
+                                             f"{runner.warm} eager and {runner.replays} "
+                                             f"replayed steps of {steps}")
+                    cases[f"{mode}/{items}"] = max(
+                        [abs(a - b) for a, b in zip(got[0] + got[1], want[0] + want[1])]
+                        + [float((h - hw).abs().max()) for h, hw in zip(runner.H, H_want)])
+                    del graphs, runner, H_want
+                    seen.clear()
+        kept = {}
+        ways = {"eager": dict(_eager=True), "graph": {}, "graph_kept": dict(_graphs=kept)}
+        for extra in ways.values():  # set-up and capture, not timed
+            evaluate(model, test, **kw, **extra)
+        seconds, peaks = {w: [] for w in ways}, {}
+        for _ in range(EVAL_GRAPH_REPS):
+            for way, extra in ways.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                evaluate(model, test, **kw, **extra)
+                seconds[way].append(time.perf_counter() - t0)
+                peaks[way] = max(peaks.get(way, 0), torch.cuda.max_memory_allocated())
+        traced = {way: trace(lambda: evaluate(model, test, **kw, **extra), steps)
+                  for way, extra in ways.items()}
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reserved = [torch.cuda.memory_reserved()]
+        evaluate(model, test, **kw)
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        reserved.append(torch.cuda.memory_reserved())
+        (runner,) = kept.values()
+        rec = {"phase": "eval_graph", "model": name, "n_items": model.n_items,
+               "layers": model.config.layers, "final_act": model.config.final_act,
+               "test_events": len(test), "scored_events": events, "steps": steps,
+               "batch_size": EVAL_BATCH, "cutoffs": EVAL_CUTOFFS,
+               "subset_items": EVAL_GRAPH_SUBSET, "warmup_steps": WARMUP_STEPS,
+               "max_abs_err": cases,
+               "ways": {way: {
+                   "seconds": seconds[way],
+                   "ms_per_step": float(np.median(seconds[way])) * 1e3 / steps,
+                   "ms_per_512_events": float(np.median(seconds[way])) * 1e3
+                   / (events / EVAL_BATCH),
+                   "host_launches_per_step": traced[way]["host_launches"],
+                   "device_busy_ms_per_step": traced[way]["device_busy_ms"],
+                   "kernels_per_step": traced[way]["kernels"],
+                   "max_memory_allocated": peaks[way]} for way in ways},
+               "pool_bytes": runner.pool_bytes,
+               "memory_allocated_before_after": [before, after],
+               "memory_reserved_before_after": reserved, "card": smi_line}
+        emit(rec)
+        if any(cases.values()):
+            raise AssertionError(f"eval_graph {name}: the graph and the eager loop differ: "
+                                 f"{cases}")
+        if before != after:
+            raise AssertionError(f"eval_graph {name}: a standalone evaluate left "
+                                 f"{after - before} bytes allocated")
+        del kept, runner
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "eval_graph_summary", "seconds": time.time() - t_phase, "card": smi_line})
 
 
 def _retrain_split(train):
@@ -1619,6 +1898,32 @@ def _state(model):
     return [model.params, model._train_state.opt_state]
 
 
+@contextlib.contextmanager
+def _eval_builds():
+    """Counts, while the block runs, the schedules ``evaluate`` builds
+    (``eval/evaluation.py``'s ``build_schedule``) and the evaluation steps
+    it captures (``_EvalGraph`` objects made)."""
+    from gru4rec_tpu_torch.eval import evaluation
+
+    counts = {"valid_schedules": 0, "valid_graphs": 0}
+    build, graph = evaluation.build_schedule, evaluation._EvalGraph
+
+    def counted_build(*args, **kw):
+        counts["valid_schedules"] += 1
+        return build(*args, **kw)
+
+    class Counted(graph):
+        def __init__(self, *args, **kw):
+            counts["valid_graphs"] += 1
+            super().__init__(*args, **kw)
+
+    evaluation.build_schedule, evaluation._EvalGraph = counted_build, Counted
+    try:
+        yield counts
+    finally:
+        evaluation.build_schedule, evaluation._EvalGraph = build, graph
+
+
 def phase_resume(smi_line):
     """Exact resume across a training checkpoint, on the markov chain with
     SR state (K2): two uninterrupted runs (their difference is
@@ -1627,7 +1932,10 @@ def phase_resume(smi_line):
     (its difference from the uninterrupted run is ``resume_diff``; K2
     launches once per resumed step); ``resume_diff <= repeat_diff``. Then
     ``eval_data`` with ``early_stop_patience`` and ``keep_best``: the kept
-    parameters equal those of the best epoch's run."""
+    parameters equal those of the best epoch's run, and that ``fit``'s
+    validations built one schedule (``valid_schedules``) and captured one
+    evaluation step (``valid_graphs``), as JAX's ``fit`` builds one
+    schedule."""
     import torch
 
     from gru4rec_tpu_torch import GRU4Rec
@@ -1653,8 +1961,9 @@ def phase_resume(smi_line):
         resume_diff = _max_diff(_state(resumed), _state(straight[0]))
         steps = sum(e["steps"] for e in resumed.epoch_stats)
 
-        kept = run(eval_data=valid, eval_metric="mrr", early_stop_patience=1,
-                   keep_best=True)
+        with _eval_builds() as valid_builds:
+            kept = run(eval_data=valid, eval_metric="mrr", early_stop_patience=1,
+                       keep_best=True)
         mrrs = [v["mrr"] for v in kept.valid_stats]
         best = 1 + int(np.argmax(mrrs))  # the first of equal scores, as fit() keeps
         ref = {1: first, 2: run(n_epochs=2), 3: straight[0]}[best]
@@ -1664,6 +1973,7 @@ def phase_resume(smi_line):
            "resumed_losses": [e["loss"] for e in resumed.epoch_stats],
            "resumed_steps": steps, "launches": by_mode, "trace_bytes": traces,
            "valid_mrr": mrrs, "best_epoch": best, "keep_best_diff": keep_diff,
+           **valid_builds,
            **schedules, "seconds": time.time() - t_phase, "card": smi_line}
     emit(out)
     if by_mode != {m: (steps if m == "K2" else 0) for m in sparse_update.MODES}:
@@ -1674,6 +1984,9 @@ def phase_resume(smi_line):
         raise AssertionError(f"profile_dir holds {traces}")
     if not (kept.valid_stats and keep_diff <= repeat_diff):
         raise AssertionError(f"keep_best kept parameters {keep_diff} off epoch {best}'s")
+    # fit memoizes its validation schedule and keeps its captured step
+    if len(mrrs) < 2 or valid_builds != {"valid_schedules": 1, "valid_graphs": 1}:
+        raise AssertionError(f"{len(mrrs)} validations built {valid_builds}")
     _check_schedules("resume", schedules, None)
 
 
@@ -1700,7 +2013,9 @@ def phase_cli(smi_line):
     archive, which must print the same ``PRIMARY METRIC:``; a markov run
     with ``learning_rate=nan``, which must exit 2 and dump its state to
     ``GRU4REC_TPU_NAN_DUMP`` (a temporary path, so nothing lands in the
-    working directory)."""
+    working directory), run beside the other two."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t_phase = time.time()
     train, test = synth_split()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1711,13 +2026,16 @@ def phase_cli(smi_line):
         test.to_csv(test_p, sep="\t", index=False)
         markov(800).to_csv(markov_p, sep="\t", index=False)
         env = {**os.environ, "GRU4REC_TPU_NAN_DUMP": dump}
-        fit, fit_s, fit_pm = _cli([train_p, "-ps", _param_string(FLAGSHIP), "-s", model_p,
-                                   "-t", test_p, "-m", "1", "5", "20", "-lpm"], env)
-        load, load_s, load_pm = _cli([model_p, "-l", "-t", test_p, "-m", "1", "5", "20",
-                                      "-lpm"], env)
-        nan, nan_s, _ = _cli([markov_p, "-ps", "loss=bpr-max,layers=64,batch_size=32,"
-                              "n_sample=64,n_epochs=1,constrained_embedding=True,"
-                              "learning_rate=nan"], env)
+        with ThreadPoolExecutor(1) as pool:
+            nan_job = pool.submit(_cli, [markov_p, "-ps", "loss=bpr-max,layers=64,"
+                                         "batch_size=32,n_sample=64,n_epochs=1,"
+                                         "constrained_embedding=True,learning_rate=nan"], env)
+            fit, fit_s, fit_pm = _cli([train_p, "-ps", _param_string(FLAGSHIP), "-s",
+                                       model_p, "-t", test_p, "-m", "1", "5", "20", "-lpm"],
+                                      env)
+            load, load_s, load_pm = _cli([model_p, "-l", "-t", test_p, "-m", "1", "5", "20",
+                                          "-lpm"], env)
+            nan, nan_s, _ = nan_job.result()
         dumped = os.path.exists(dump)
     out = {"phase": "cli", "train_rc": fit.returncode, "train_s": fit_s,
            "train_primary_metric": fit_pm, "load_rc": load.returncode, "load_s": load_s,
@@ -2408,33 +2726,37 @@ def phase_examples(smi_line):
     ``EXAMPLES_EVENTS`` events written as TSV, which cannot meet the
     published numbers: exit 1, ``PARITY FAIL`` and a report of 8 metrics,
     each measured and finite, with ``fit_seconds``; ``rsc15.preprocess`` on
-    synthetic raw clicks: its four TSVs."""
+    synthetic raw clicks: its four TSVs. The three run at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import pandas as pd
 
     t_phase = time.time()
     out = {"phase": "examples"}
-    quick, out["quickstart_s"] = _example("quickstart_synthetic", [])
-    lines = quick.stdout.splitlines()
-    metrics = [ln for ln in lines if ln.startswith("Recall@")]
-    top3 = "top-3 next items for two live sessions:" in quick.stdout
-    out.update(quickstart_rc=quick.returncode, quickstart_metrics=metrics,
-               quickstart_top3=lines[-4:] if top3 else None)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(3) as pool:
         train, test = synth_split(seed=2, n_items=EXAMPLES_ITEMS, n_events=EXAMPLES_EVENTS)
         train_p, test_p, report_p = (os.path.join(tmp, f)
                                      for f in ("train.tsv", "test.tsv", "r.json"))
         train.to_csv(train_p, sep="\t", index=False)
         test.to_csv(test_p, sep="\t", index=False)
-        parity, out["reproduce_s"] = _example(
-            "reproduce_published", ["retailrocket", train_p, test_p, "--out", report_p])
-        report = json.load(open(report_p)) if os.path.exists(report_p) else None
         raw, pre_dir = os.path.join(tmp, "yoochoose-clicks.dat"), os.path.join(tmp, "rsc15")
         os.mkdir(pre_dir)
         yoochoose_clicks(raw)
-        pre, out["preprocess_s"] = _example("rsc15.preprocess", [raw, pre_dir])
+        jobs = [pool.submit(_example, "quickstart_synthetic", []),
+                pool.submit(_example, "reproduce_published",
+                            ["retailrocket", train_p, test_p, "--out", report_p]),
+                pool.submit(_example, "rsc15.preprocess", [raw, pre_dir])]
+        (quick, out["quickstart_s"]), (parity, out["reproduce_s"]), \
+            (pre, out["preprocess_s"]) = (job.result() for job in jobs)
+        report = json.load(open(report_p)) if os.path.exists(report_p) else None
         tsvs = {f: len(pd.read_csv(os.path.join(pre_dir, f), sep="\t"))
                 for f in sorted(os.listdir(pre_dir))}
         heads = {open(os.path.join(pre_dir, f)).readline().strip() for f in tsvs}
+    lines = quick.stdout.splitlines()
+    metrics = [ln for ln in lines if ln.startswith("Recall@")]
+    top3 = "top-3 next items for two live sessions:" in quick.stdout
+    out.update(quickstart_rc=quick.returncode, quickstart_metrics=metrics,
+               quickstart_top3=lines[-4:] if top3 else None)
     out.update(reproduce_rc=parity.returncode,
                reproduce_verdict=[ln for ln in parity.stdout.splitlines()
                                   if ln.startswith("PARITY")],
@@ -2516,6 +2838,7 @@ def main() -> int:
     paths["learn_sr"] = phase_learn_sr(smi_line)
     proto = phase_proto(smi_line)
     phase_serve(flagship, smi_line)
+    phase_eval_graph(flagship, smi_line)
     phase_checkpoint(flagship, smi_line)
     phase_resume(smi_line)
     phase_cli(smi_line)

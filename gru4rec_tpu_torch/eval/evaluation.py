@@ -9,8 +9,12 @@ numpy and pandas around the model's predict call.
 ``evaluate`` (reference: evaluate_gpu, evaluation.py:15-147) keeps the
 same session-parallel lane iteration (the shared schedule), the same rank
 graph with four tie-break modes (evaluation.py:62-66), several cutoffs
-accumulated in one pass, a Python loop over steps, and only the final
-counters read back.
+accumulated in one pass, a loop over steps, and only the final counters
+read back. The JAX package compiles its steps into one program per chunk;
+on a CUDA device the port captures one step as a CUDA graph and replays it
+per step (:class:`_EvalGraph`), with the eager loop as its plain version.
+The schedule is memoized across calls on one frame (``_sched_cache``), as
+in JAX.
 
 Semantics kept from the JAX package:
 * test items are inner-joined to the training vocabulary (unseen items are
@@ -38,6 +42,7 @@ candidates.
 from __future__ import annotations
 
 import copy
+import json
 
 import numpy as np
 import pandas as pd
@@ -51,6 +56,9 @@ from gru4rec_tpu_torch.ops.activations import NEG_INF, get_activation
 from gru4rec_tpu_torch.ops.ranking import TIE_MODES, compute_ranks, ranks_from_counts
 from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_layout,
                                                   make_row_gather, shard_params)
+from gru4rec_tpu_torch.train.step import StackLayout
+from gru4rec_tpu_torch.utils.cuda_graph import (WARMUP_STEPS, binding, capture,
+                                                capture_stream, run_on)
 
 # tiebreaking on a mesh: each model shard dithers from its own generator,
 # seeded ``seed + 1 + mi * SHARD_SEED_STRIDE`` (shard 0: the single-device seed)
@@ -69,8 +77,10 @@ def _input_rows(params, idx, mode, gather_rows=lambda table, idx: table[idx]):
 def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                    items_subset: bool = False):
     """Build the per-step evaluation function ``step(params, H, in_idx,
-    out_idx, valid, reset, rec, mrr, gen, item_idx=None) -> H``; ``rec``
-    and ``mrr`` (len(cutoffs),) accumulate in place."""
+    out_idx, valid, reset, rec, mrr, gen, item_idx=None)``: the lanes ``H``
+    change in place, and ``rec`` and ``mrr`` (len(cutoffs),) accumulate in
+    place, so that a captured step (:class:`_EvalGraph`) reads and writes
+    the same tensors on every replay. Nothing in it waits on the host."""
     if tie_mode not in TIE_MODES:
         raise NotImplementedError(f"Unknown tie mode: {tie_mode!r}")
     mode = gru.input_mode(cfg)
@@ -79,14 +89,14 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
     def step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen,
              item_idx=None):
         Wy = params["Wy"]
-        H = [torch.where(reset[:, None], 0.0, h) for h in H]
+        H_in = [torch.where(reset[:, None], 0.0, h) for h in H]
         srows = _input_rows(params, torch.where(valid, in_idx, 0), mode)
         b = in_idx.shape[0]
         lanes = torch.arange(b, device=Wy.device)
         if items_subset:
             # score only the target + the item list (evaluation.py:104-105)
             srows["Wy"] = torch.cat([Wy[torch.where(valid, out_idx, 0)], Wy[item_idx]])
-            H_new, yhat = gru.forward(params, srows, H, cfg, M=b, training=False,
+            H_new, yhat = gru.forward(params, srows, H_in, cfg, M=b, training=False,
                                       col_valid=None, full_catalog=False)
             if tie_mode == "tiebreaking":
                 yhat = yhat + torch.rand(yhat.shape, generator=gen,
@@ -109,7 +119,7 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
         else:
             self_adj = 0.0  # full catalog: the self-comparison is in `others`
             item_valid = torch.arange(Wy.shape[0], device=Wy.device) < n_items
-            H_new, yhat = gru.forward(params, srows, H, cfg, M=b, training=False,
+            H_new, yhat = gru.forward(params, srows, H_in, cfg, M=b, training=False,
                                       full_catalog=True, item_valid=item_valid)
             yhat = torch.where(item_valid, yhat, -torch.inf)
             if tie_mode == "tiebreaking":
@@ -123,7 +133,8 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
             hit = (ranks <= c).float() * vf
             rec[k] += torch.sum(hit)
             mrr[k] += torch.sum(hit / ranks)
-        return [torch.where(valid[:, None], hn, ho) for hn, ho in zip(H_new, H)]
+        for h, hn, ho in zip(H, H_new, H_in):
+            h.copy_(torch.where(valid[:, None], hn, ho))
 
     return step
 
@@ -160,7 +171,7 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
                         items_subset: bool = False):
     """The per-step evaluation function on ``mesh`` (JAX's
     ``make_dist_eval_chunk_fn``, ranking activated scores): the signature
-    of :func:`make_eval_step`, with ``params`` this rank's shards
+    of :func:`make_eval_step` (``H`` in place), with ``params`` this rank's shards
     (``parallel/dist_step.py::shard_params``), the schedule arguments the
     global (batch,) step, ``H`` the rank's lane block and ``gen`` its
     shard's dither generator. ``items_subset`` scores, as the single-device
@@ -181,7 +192,7 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
         r0 = mesh.mi * rows_local
         in_l, out_l = in_idx[lo:lo + bl], out_idx[lo:lo + bl]
         valid_l, reset_l = valid[lo:lo + bl], reset[lo:lo + bl]
-        H = [torch.where(reset_l[:, None], 0.0, h) for h in H]
+        H_in = [torch.where(reset_l[:, None], 0.0, h) for h in H]
         srows = _input_rows(params, torch.where(valid_l, in_l, 0), mode,
                             make_row_gather(r0, rows_local, mesh))
         lanes = torch.arange(bl, device=dev)
@@ -190,7 +201,7 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
             cols = torch.cat([torch.where(valid, out_idx, 0), item_idx])
             owned = (cols >= r0) & (cols < r0 + rows_local)
             srows["Wy"] = torch.where(owned[:, None], Wy[torch.where(owned, cols - r0, 0)], 0.0)
-            H_new, s = gru.forward(params, srows, H, cfg_lin, M=bl, training=False,
+            H_new, s = gru.forward(params, srows, H_in, cfg_lin, M=bl, training=False,
                                    col_valid=None, full_catalog=False)
             yhat = act(s, owned[None, :])
             if tie_mode == "tiebreaking":
@@ -210,7 +221,7 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
                                        1.0 if tie_mode == "conservative" else 0.5)
         else:
             col_valid = (r0 + torch.arange(rows_local, device=dev)) < n_items
-            H_new, s = gru.forward(params, srows, H, cfg_lin, M=bl, training=False,
+            H_new, s = gru.forward(params, srows, H_in, cfg_lin, M=bl, training=False,
                                    full_catalog=True, item_valid=col_valid)
             others = torch.where(col_valid, act(s, col_valid), -torch.inf)
             if tie_mode == "tiebreaking":
@@ -238,7 +249,8 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
             hit = (ranks <= c).float() * vf
             rec[k] += torch.sum(hit)
             mrr[k] += torch.sum(hit / ranks)
-        return [torch.where(valid_l[:, None], hn, ho) for hn, ho in zip(H_new, H)]
+        for h, hn, ho in zip(H, H_new, H_in):
+            h.copy_(torch.where(valid_l[:, None], hn, ho))
 
     return step
 
@@ -282,16 +294,135 @@ def make_dist_topk_fn(cfg, n_items: int, k: int, mesh):
     return topk
 
 
+def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time_key,
+                   sched_cache=None):
+    """The evaluation schedule of ``test_data``: its events inner-joined to
+    the training vocabulary (unseen items dropped) and sorted by (session,
+    time, item), the sessions in that order over ``batch_size`` lanes.
+
+    ``sched_cache`` (a caller-owned dict; JAX's ``_sched_cache``) memoizes
+    that host work across calls with the same frame: ``fit`` validates on
+    one frame every epoch and keeps one dict per call. The key is the
+    frame's ``id``, its length, its first and last rows' three columns, the
+    batch and the three column names (an ``id`` alone could be recycled,
+    and an in-place edit keeps ``id`` and length); the frame is pinned in
+    the entry, so its ``id`` cannot be reused while the dict holds it."""
+    key = None
+    if sched_cache is not None:
+        cols = (session_key, item_key, time_key)
+        fp = ()
+        if len(test_data):
+            first, last = test_data.iloc[0], test_data.iloc[-1]
+            fp = tuple(first[k] for k in cols) + tuple(last[k] for k in cols)
+        key = (id(test_data), len(test_data), fp, int(batch_size)) + cols
+        hit = sched_cache.get(key)
+        if hit is not None:
+            return hit[1]
+    itemidmap = gru_model.itemidmap
+    data = pd.merge(
+        test_data,
+        pd.DataFrame({"ItemIdx": itemidmap.values, item_key: itemidmap.index}),
+        on=item_key,
+        how="inner",
+    )
+    data.sort_values([session_key, time_key, item_key], inplace=True)
+    offsets = compute_offset(data, session_key)
+    order = np.arange(len(offsets) - 1, dtype=np.int64)
+    sched = build_schedule(data["ItemIdx"].values.astype(np.int32), offsets, order,
+                           batch_size)
+    if key is not None:
+        sched_cache[key] = (test_data, sched)
+    return sched
+
+
+class _EvalGraph:
+    """The evaluation step captured as a CUDA graph and replayed per step:
+    the counterpart of JAX's compiled evaluator (``make_eval_chunk_fn``, a
+    ``lax.scan`` over the steps with the carry donated).
+
+    It owns the lanes ``H``, the counters ``rec`` and ``mrr``, the dither
+    generator ``gen`` and two input slots: ``slot``, one step's row of the
+    packed schedule (``train/step.py::StackLayout``: ``in | out | valid |
+    reset``), and ``item_idx``, the subset's item indices. :meth:`run`
+    zeroes the state in place and seeds ``gen``; the first
+    ``WARMUP_STEPS`` steps the object ever runs are eager, on the capture
+    stream, the next is captured, and every step from then on copies its
+    row into the slot and replays (a host copy and a graph launch per
+    step). ``gen`` is registered with the graph, so each replay draws the
+    tiebreaking dither the eager step would. The graph reads the parameters
+    it was captured on: the caller keys it on their binding
+    (:func:`evaluate`). The capture's pool holds the step's intermediates,
+    among them the (batch, n_items) score matrices; ``pool_bytes`` is its
+    size."""
+
+    def __init__(self, step, cfg, batch_size: int, n_cutoffs: int, n_subset, device):
+        self.step = step
+        self.layout = StackLayout(batch_size, 0)
+        self.H = gru.init_hidden(cfg, batch_size, device)
+        self.rec = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
+        self.mrr = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
+        self.gen = torch.Generator(device=device)
+        self.slot = torch.zeros(self.layout.width, dtype=torch.int32, device=device)
+        self.item_idx = (None if n_subset is None else
+                         torch.zeros(n_subset, dtype=torch.int32, device=device))
+        self.stream = capture_stream(device)
+        self.graph = None
+        self.warm = 0     # eager steps before the capture
+        self.replays = 0  # replayed steps, over every call
+        self.pool_bytes = None
+
+    def run(self, params, stack, seed: int, item_idx=None):
+        """Every step of ``stack`` ((T, 4 * batch) int32 on the device):
+        ``(rec, mrr)``, the graph's own counters."""
+        for t in (*self.H, self.rec, self.mrr):
+            t.zero_()
+        self.gen.manual_seed(seed)
+        if item_idx is not None:
+            self.item_idx.copy_(item_idx)
+        for t in range(stack.shape[0]):
+            if self.graph is None:
+                if self.warm < WARMUP_STEPS:
+                    run_on(self.stream, lambda: self._step(params, stack[t]))
+                    self.warm += 1
+                    continue
+                self.graph, self.pool_bytes, _ = capture(
+                    lambda: self._step(params, self.slot), self.stream, [self.gen])
+            self.slot.copy_(stack[t])
+            self.graph.replay()
+            self.replays += 1
+        return self.rec, self.mrr
+
+    def _step(self, params, row):
+        in_idx, out_idx, valid, reset, _, _ = self.layout.split(row)
+        self.step(params, self.H, in_idx, out_idx, valid, reset, self.rec, self.mrr,
+                  self.gen, self.item_idx)
+
+
 @torch.no_grad()
 def evaluate(gru_model, test_data, items=None, session_key="SessionId",
              item_key="ItemId", time_key="Time", cut_off=[20], batch_size=100,
-             mode="standard", mesh=None, _shards=None):
+             mode="standard", mesh=None, _sched_cache=None, _shards=None, _graphs=None,
+             _eager=False):
     """Measure Recall@N and MRR@N of a trained model (reference: evaluate_gpu,
     evaluation.py:15-147). Returns ``(recall_list, mrr_list)``, one entry per
     cutoff. ``items`` restricts rank competitors to the given item list
     (reference: evaluation.py:104-105). ``tiebreaking`` adds a 1e-10 uniform
     dither from a ``torch.Generator`` seeded with ``seed + 1``: its results
     agree with the JAX package's in distribution, not event by event.
+
+    On a CUDA device the steps replay one captured step (:class:`_EvalGraph`),
+    bit-equal to the eager loop, which is its plain version: the CPU runs
+    that loop, and so do an evaluation of at most ``WARMUP_STEPS`` steps,
+    ``mesh=`` (its collectives run over gloo too, which cannot be captured)
+    and ``_eager=True``. A graph is captured once per evaluator: the config,
+    ``n_items``, the cutoffs, the tie mode, the batch, the subset and its
+    length, and the (pointer, shape, dtype) of every parameter it reads.
+    ``_graphs`` (a caller-owned dict) keeps the graphs across calls by that
+    key: ``fit`` keeps one per call, since it validates the same live
+    parameters every epoch. Without it the call frees its graph and gives
+    the graph's pool back to the device (``torch.cuda.empty_cache``) when
+    it returns. ``_sched_cache`` memoizes the schedule
+    (:func:`_eval_schedule`).
 
     ``mesh`` (``parallel.make_mesh``) evaluates on every rank of the mesh
     (module doc), which must all call it; ``batch_size`` is rounded down to
@@ -322,41 +453,8 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     else:
         params = _shards
     dev = params["Wy"].device
-    itemidmap = gru_model.itemidmap
-    test_data = pd.merge(
-        test_data,
-        pd.DataFrame({"ItemIdx": itemidmap.values, item_key: itemidmap.index}),
-        on=item_key,
-        how="inner",
-    )
-    test_data.sort_values([session_key, time_key, item_key], inplace=True)
-    offsets = compute_offset(test_data, session_key)
-    order = np.arange(len(offsets) - 1, dtype=np.int64)
-    sched = build_schedule(test_data["ItemIdx"].values.astype(np.int32), offsets,
-                           order, batch_size)
-
-    items_subset = items is not None
-    item_idx = None
-    if items_subset:
-        item_idx = torch.from_numpy(
-            itemidmap[items].values.astype(np.int32)).to(dev)
-    gen = torch.Generator(device=dev)
-    if mesh is None:
-        step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
-        gen.manual_seed(cfg.seed + 1)
-        H = gru.init_hidden(cfg, batch_size, dev)
-    else:
-        step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh, batch_size,
-                                   items_subset)
-        gen.manual_seed(cfg.seed + 1 + mesh.mi * SHARD_SEED_STRIDE)
-        H = gru.init_hidden(cfg, mesh.lanes(batch_size)[1], dev)
-    rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
-    mrr = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
-    in_d, out_d, valid_d, reset_d = (torch.from_numpy(a).to(dev) for a in (
-        sched.in_idx, sched.out_idx, sched.valid, sched.reset))
-    for t in range(sched.n_steps):
-        H = step(params, H, in_d[t], out_d[t], valid_d[t], reset_d[t], rec, mrr,
-                 gen, item_idx)
+    sched = _eval_schedule(gru_model, test_data, batch_size, session_key, item_key,
+                           time_key, _sched_cache)
     n = float(sched.n_events)
     if n == 0:
         raise ValueError(
@@ -364,10 +462,51 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
             "than two events after inner-joining items to the training "
             "vocabulary"
         )
+    items_subset = items is not None
+    item_idx = None
+    if items_subset:
+        item_idx = torch.from_numpy(
+            gru_model.itemidmap[items].values.astype(np.int32)).to(dev)
+    layout = StackLayout(batch_size, 0)
+    # the whole schedule in one upload
+    stack = layout.pack(sched.in_idx, sched.out_idx, sched.valid, sched.reset, None, None,
+                        dev)
+    seed = cfg.seed + 1
+    if mesh is None:
+        step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
+        graphed = dev.type == "cuda" and not _eager and sched.n_steps > WARMUP_STEPS
+        H = None if graphed else gru.init_hidden(cfg, batch_size, dev)
+    else:
+        step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh, batch_size,
+                                   items_subset)
+        seed += mesh.mi * SHARD_SEED_STRIDE
+        graphed = False
+        H = gru.init_hidden(cfg, mesh.lanes(batch_size)[1], dev)
+    if graphed:
+        key = (json.dumps(cfg.to_dict(), sort_keys=True, default=str), gru_model.n_items,
+               tuple(int(c) for c in cutoffs), mode, batch_size, items_subset,
+               None if item_idx is None else len(item_idx), binding(params))
+        graphs = {} if _graphs is None else _graphs
+        if key not in graphs:
+            graphs[key] = _EvalGraph(step, cfg, batch_size, len(cutoffs),
+                                     None if item_idx is None else len(item_idx), dev)
+        rec, mrr = graphs[key].run(params, stack, seed, item_idx)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
+        mrr = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
+        for t in range(sched.n_steps):
+            in_idx, out_idx, valid, reset, _, _ = layout.split(stack[t])
+            step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen, item_idx)
     combo = torch.cat([rec, mrr])
     if mesh is not None:
         mesh.all_reduce(combo, "data")
     combo = combo.cpu().numpy()
+    if graphed and _graphs is None:
+        # a standalone call gives its graph's pool back to the device
+        del graphs, rec, mrr
+        torch.cuda.empty_cache()
     k = len(cutoffs)
     return ([float(r) / n for r in combo[:k]],
             [float(m) / n for m in combo[k:2 * k]])

@@ -8,9 +8,12 @@ step replayed per step, the counterpart of JAX's one program per chunk;
 the training state changes in place only), with JAX's options (in-fit
 validation with early stopping and ``keep_best``, training checkpoints
 and exact resume, ``retrain`` over a grown catalog, a profiler trace, the
-per-chunk NaN abort with a state dump); stateful serving through ``predict_next_batch``
-and ``predict_topk``; ``cast_for_serving``; ``savemodel`` / ``loadmodel``
-(``io/checkpoint.py``, archives shared with the JAX package). All three
+per-chunk NaN abort with a state dump; in-fit validation builds its
+schedule once and keeps its captured step for the call); stateful serving
+through ``predict_next_batch`` and ``predict_topk`` (on the card, captured
+calls replayed, :class:`_ServeGraph`); ``cast_for_serving``; ``savemodel``
+/ ``loadmodel`` (``io/checkpoint.py``, archives shared with the JAX
+package). All three
 input modes train, under every ``opt_state_dtype``, including
 ``"bfloat16_sr"``. ``fit``, ``predict_topk`` and ``evaluate`` take a
 ``mesh=`` (``parallel/mesh.py``): every rank of the mesh calls them, lanes
@@ -51,7 +54,11 @@ from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_lay
                                                   unshard_train_state)
 from gru4rec_tpu_torch.train.step import (TrainState, init_opt_state, init_train_state,
                                           make_chunk_fn, make_generator)
+from gru4rec_tpu_torch.utils.cuda_graph import binding, capture, capture_stream, run_on
 from gru4rec_tpu_torch.utils.logging import get_logger
+
+# Eager calls on the capture stream before a serving call is captured.
+SERVE_WARMUP_CALLS = 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -105,6 +112,50 @@ class _LaggedLoss:
         return math.isnan(float(self.host[ci]))
 
 
+class _ServeGraph:
+    """One serving call captured as a CUDA graph: the counterpart of JAX's
+    jitted ``predict_step`` and ``topk_step``.
+
+    ``fn(in_idx, keep)`` is the call: it multiplies the lanes by the keep
+    mask, runs the serving step and writes the new lanes in place, and
+    returns its outputs. Both inputs come from one int64 input slot,
+    ``[item indices | keep mask]``, one host-to-device copy per call. The
+    first ``SERVE_WARMUP_CALLS`` calls run eagerly on the capture stream;
+    the next is captured, and every call from then on copies its inputs
+    into the slot and replays. The outputs then live in the graph's pool
+    and the next replay overwrites them: the caller copies them to the host
+    first. ``bound`` is the binding (``utils/cuda_graph.py``) of the
+    parameters and lanes the graph reads and writes."""
+
+    def __init__(self, fn, batch: int, device, bound):
+        self.fn = fn
+        self.batch = batch
+        self.bound = bound
+        self.slot = torch.zeros(2 * batch, dtype=torch.int64, device=device)
+        self.stream = capture_stream(device)
+        self.graph = None
+        self.out = None
+        self.warm = 0     # eager calls before the capture
+        self.replays = 0
+        self.pool_bytes = None
+
+    def __call__(self, inputs: torch.Tensor):
+        """The outputs of one call on ``inputs``, the slot's (2 * batch,)
+        int64 values on the host."""
+        B = self.batch
+        if self.graph is None:
+            if self.warm < SERVE_WARMUP_CALLS:
+                x = inputs.to(self.slot.device)
+                self.warm += 1
+                return run_on(self.stream, lambda: self.fn(x[:B], x[B:]))
+            self.graph, self.pool_bytes, self.out = capture(
+                lambda: self.fn(self.slot[:B], self.slot[B:]), self.stream)
+        self.slot.copy_(inputs)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
 class GRU4Rec:
     """GRU4Rec session-based recommender on PyTorch."""
 
@@ -127,6 +178,10 @@ class GRU4Rec:
         self._completed_epochs = 0
         self._device_params = None  # (params, their copy on self.device)
         self._mesh_params = None    # (params, mesh, this rank's shards)
+        # the captured serving calls on a CUDA device, by ("topk", batch, k)
+        # or ("next", batch); None serves eagerly there too (their plain
+        # version, which the CPU always runs)
+        self._serve_graphs = {}
 
     def set_params(self, **kwargs):
         self.config.set_params(**kwargs)
@@ -197,6 +252,8 @@ class GRU4Rec:
         # predict call of that width must not continue from
         self._current_session = None
         self._predict_batch = None
+        if self._serve_graphs:
+            self._serve_graphs.clear()  # their pools, while training runs
         self._completed_epochs = 0  # resume= overrides with the saved epoch
         self.error_during_train = False
         self.epoch_stats = []  # per-epoch {loss, seconds, steps, events}
@@ -293,6 +350,10 @@ class GRU4Rec:
         C = cfg.chunk_size
         epochs = cfg.n_epochs if n_epochs is None else n_epochs
         sched = None
+        # in-fit validation evaluates one frame on the live parameters every
+        # epoch: its schedule is built once and its captured step kept for
+        # the call
+        eval_sched_cache, eval_graphs = {}, {}
         for epoch in range(start_epoch, epochs):
             # the first epoch of a run pays the kernels' build
             prof = (_start_profile(dev)
@@ -361,8 +422,9 @@ class GRU4Rec:
                         self, eval_data, cut_off=[eval_cutoff],
                         batch_size=eval_batch_size, mode=eval_mode,
                         session_key=session_key, item_key=item_key,
-                        time_key=time_key, mesh=mesh,
+                        time_key=time_key, mesh=mesh, _sched_cache=eval_sched_cache,
                         _shards=None if mesh is None else state.params,
+                        _graphs=eval_graphs,
                     )
                 finally:
                     self.params = prev_params
@@ -557,46 +619,102 @@ class GRU4Rec:
         width change resets the persistent lane state (reference: reset on
         batch change, gru4rec.py:691-711), not a changed
         ``predict_for_item_ids``, which evaluate_sessions_batch varies every
-        step mid-session."""
+        step mid-session. Fresh lanes are new tensors (a graph bound to the
+        old ones is captured again); every call then changes them in
+        place."""
         if self._predict_batch != batch or self._current_session is None:
             self.H = gru.init_hidden(self.config, batch, self.device)
             self._current_session = np.ones(batch) * -1
             self._predict_batch = batch
 
-    def _reset_changed_lanes(self, session_ids) -> None:
-        """Zero the hidden lanes whose session changed since the last predict
-        call and record the new session map (reference: gru4rec.py:712-716)."""
+    def _keep_mask(self, session_ids) -> np.ndarray:
+        """The lanes whose session is the one of the last predict call
+        (bool, batch); records the new session map (reference:
+        gru4rec.py:712-716)."""
         session_ids = np.asarray(session_ids)
-        changed = session_ids != self._current_session
-        if changed.any():
-            keep = torch.from_numpy(~changed).to(self.device)[:, None]
-            self.H = [h * keep for h in self.H]
+        keep = session_ids == self._current_session
+        if not keep.all():
             self._current_session = session_ids.copy()
+        return keep
+
+    def _reset_changed_lanes(self, session_ids) -> None:
+        """Zero, in place, the hidden lanes whose session changed since the
+        last predict call: a multiply by the keep mask, as JAX does, so a
+        NaN lane stays NaN."""
+        keep = self._keep_mask(session_ids)
+        if not keep.all():
+            keep_t = torch.from_numpy(keep).to(self.device)[:, None]
+            for h in self.H:
+                h.mul_(keep_t)
+
+    def _item_index_array(self, item_ids) -> np.ndarray:
+        return self.itemidmap[item_ids].values.astype(np.int64)
 
     def _item_indices(self, item_ids) -> torch.Tensor:
-        return torch.from_numpy(
-            self.itemidmap[item_ids].values.astype(np.int64)).to(self.device)
+        return torch.from_numpy(self._item_index_array(item_ids)).to(self.device)
+
+    def _graphed(self, mesh=None) -> bool:
+        return mesh is None and self.device.type == "cuda" and self._serve_graphs is not None
+
+    def _serve_graph(self, key, session_ids, input_item_ids, finish):
+        """The outputs of the captured serving call ``key`` on this
+        request: the full-catalog serving step, then ``finish(scores)``,
+        which gives the call's outputs. The graph is captured again
+        when the parameters or lanes it is bound to change (a new lane
+        width, ``cast_for_serving``, ``loadmodel``, a ``fit`` that grows
+        the tables, the device copy of ``fit(mesh=)``'s parameters)."""
+        params = self._serving_params()
+        bound = (self.n_items, binding(params, self.H))
+        graph = self._serve_graphs.get(key)
+        if graph is None or graph.bound != bound:
+            step = self._build_predict_fn(False)
+            H = list(self.H)
+
+            def fn(in_idx, keep):
+                for h in H:
+                    h.mul_(keep[:, None])
+                H_new, yhat = step(params, H, in_idx)
+                for h, hn in zip(H, H_new):
+                    h.copy_(hn)
+                return finish(yhat)
+
+            graph = _ServeGraph(fn, len(H[0]), self.device, bound)
+            self._serve_graphs[key] = graph
+        keep = self._keep_mask(session_ids)
+        inputs = np.concatenate([self._item_index_array(input_item_ids),
+                                 keep.astype(np.int64)])
+        return graph(torch.from_numpy(inputs))
 
     def predict_next_batch(self, session_ids, input_item_ids,
                            predict_for_item_ids=None, batch: int = 100):
         """Stateful batch prediction (reference: gru4rec.py:665-728): hidden
         state persists across calls per lane; lanes whose session ID changed
-        are reset. Returns a DataFrame of scores, items x events."""
+        are reset. Returns a DataFrame of scores, items x events.
+
+        On a CUDA device the full-catalog call replays one captured call
+        per batch width (``_ServeGraph``). The subset call stays eager: its
+        item list has any length from call to call."""
         if self.error_during_train:
             raise Exception("Training ended with an error; model is unusable.")
         subset = predict_for_item_ids is not None
         self._ensure_lanes(batch)
+        if not subset and self._graphed():
+            preds = self._serve_graph(("next", batch), session_ids, input_item_ids,
+                                      lambda yhat: yhat.contiguous())
+            return pd.DataFrame(data=preds.cpu().numpy().T, index=self.itemidmap.index)
         self._reset_changed_lanes(session_ids)
         in_idx = self._item_indices(input_item_ids)
         step = self._build_predict_fn(subset)
         params = self._serving_params()
         if subset:
-            self.H, preds = step(params, self.H, in_idx,
-                                 self._item_indices(predict_for_item_ids))
+            H_new, preds = step(params, self.H, in_idx,
+                                self._item_indices(predict_for_item_ids))
             index = predict_for_item_ids
         else:
-            self.H, preds = step(params, self.H, in_idx)
+            H_new, preds = step(params, self.H, in_idx)
             index = self.itemidmap.index
+        for h, hn in zip(self.H, H_new):
+            h.copy_(hn)
         return pd.DataFrame(data=preds.cpu().numpy().T, index=index)
 
     def predict_topk(self, session_ids, input_item_ids, k: int = 20,
@@ -607,26 +725,38 @@ class GRU4Rec:
         share them). Returns ``(items, scores)``: an object array (batch, k)
         of raw item IDs, best first, and a float array (batch, k).
 
+        On a CUDA device the call replays one captured call per (batch, k)
+        (``_ServeGraph``: the lane reset, the step and ``torch.topk``), as
+        JAX compiles ``topk_step`` per (batch, k).
+
         ``mesh`` (``parallel.make_mesh``) serves on every rank of the mesh,
         which all make the call: each rank scores its block of the lanes
         against its row-shard of the catalog, and the per-shard top-k
         candidates are merged (``eval/evaluation.py::make_dist_topk_fn``).
         Every rank returns the whole (batch, k); the lane state is the one
-        the single-device calls use."""
+        the single-device calls use. It stays eager: its collectives run
+        over gloo too, which cannot be captured."""
         if self.error_during_train:
             raise Exception("Training ended with an error; model is unusable.")
         if mesh is not None:
             check_mesh(mesh)
         k = min(int(k), self.n_items)
         self._ensure_lanes(batch)
-        self._reset_changed_lanes(session_ids)
-        in_idx = self._item_indices(input_item_ids)
-        if mesh is not None:
-            idx, scores = self._predict_topk_dist(in_idx, k, batch, mesh)
+        if self._graphed(mesh):
+            scores, idx = self._serve_graph(
+                ("topk", batch, k), session_ids, input_item_ids,
+                lambda yhat: torch.topk(yhat, k, dim=1, sorted=True))
         else:
-            self.H, yhat = self._build_predict_fn(False)(self._serving_params(), self.H,
-                                                         in_idx)
-            scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
+            self._reset_changed_lanes(session_ids)
+            in_idx = self._item_indices(input_item_ids)
+            if mesh is not None:
+                idx, scores = self._predict_topk_dist(in_idx, k, batch, mesh)
+            else:
+                H_new, yhat = self._build_predict_fn(False)(self._serving_params(), self.H,
+                                                            in_idx)
+                for h, hn in zip(self.H, H_new):
+                    h.copy_(hn)
+                scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
         idx = idx.cpu().numpy()
         # Arrow-backed string indexes (pandas>=3) reject 2-D fancy indexing:
         # take the batch x k ids flat, as objects (only those, not the whole
@@ -650,7 +780,8 @@ class GRU4Rec:
         H = [h[lo:lo + bl].to(mesh.device) for h in self.H]
         H_new, ids, scores = make_dist_topk_fn(cfg, self.n_items, k, mesh)(
             cache[2], H, in_idx[lo:lo + bl].to(mesh.device))
-        self.H = [mesh.all_gather(h, "data").to(self.device) for h in H_new]
+        for h, hn in zip(self.H, H_new):
+            h.copy_(mesh.all_gather(hn, "data"))
         return mesh.all_gather(ids, "data"), mesh.all_gather(scores, "data")
 
     # ------------------------------------------------------------------ #
@@ -667,6 +798,8 @@ class GRU4Rec:
         dt = gru.torch_dtype(dtype)
         self.params = gru.map_params(lambda t: t.to(dt), self.params)
         self._train_state = None
+        if self._serve_graphs:
+            self._serve_graphs.clear()  # bound to the old parameters
         return self
 
     # ------------------------------------------------------------------ #

@@ -30,7 +30,6 @@ reproduces every seed.
 
 from __future__ import annotations
 
-import gc
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -44,16 +43,14 @@ from gru4rec_tpu_torch.ops.losses import get_loss
 from gru4rec_tpu_torch.ops.sr import MASK32, step_seeds
 from gru4rec_tpu_torch.ops.sampling import draw_negatives
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
+from gru4rec_tpu_torch.utils.cuda_graph import (WARMUP_STEPS, capture, capture_stream,
+                                                leaves, run_on)
 
 DENSE_GROUPS = ("Wx", "Wh", "Wrz", "Bh")
 # Per-table salt of the stochastic-rounding seed, keyed on state names (the
 # JAX package's values): without it the tables updated in one step would
 # share one dither stream. 0x5352 = ASCII "SR".
 SR_TABLE_SALT = {"Wx0": 0x53520001, "E": 0x53520002, "Wy": 0x53520003}
-# Eager steps on the capture stream before the step is captured (PyTorch
-# sets up cuBLAS workspaces and autograd's streams on first use); they are
-# the run's first real steps, never throwaway ones.
-WARMUP_STEPS = 3
 
 
 @dataclass
@@ -164,38 +161,9 @@ class StackLayout:
                 neg, seeds or None)
 
 
-# The side stream of every warm-up and capture on a device. cuBLAS keeps a
-# workspace for each stream it runs on for the life of the process (64 MiB
-# on the card), so a stream of its own per chunk function would hold one
-# more workspace after every fit.
-_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
-
-
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    key = torch.device("cuda", index)
-    if key not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
-    return _CAPTURE_STREAMS[key]
-
-
 def _state_tensors(state: TrainState, logp0) -> List[torch.Tensor]:
     """Every tensor a captured step reads or writes in place."""
-    out = [logp0] + list(state.H)
-
-    def walk(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                walk(v)
-        elif isinstance(tree, (list, tuple)):
-            for v in tree:
-                walk(v)
-        else:
-            out.append(tree)
-
-    walk(state.params)
-    walk(state.opt_state)
-    return out
+    return [logp0] + leaves(state.H, state.params, state.opt_state)
 
 
 class _StepGraph:
@@ -209,16 +177,14 @@ class _StepGraph:
     masks from ``state.gen``, registered with the graph so that every
     replay draws the masks the eager step would (the generator's offset
     advances by the step's draws per replay). A failed capture raises, and
-    so does a chunk whose state tensors are not the ones captured.
+    so does a chunk whose state tensors are not the ones captured. The
+    stream, the capture and the warm-up count are ``utils/cuda_graph.py``'s,
+    which every graph of the port shares.
 
     The row-sparse kernel's wrapper counts its calls in
     ``sparse_update.launches_by_mode``; the capture's tally (``tally``, by
     mode) is taken back, since the capture launched nothing, and added
     again on each replay, so the counters count kernel runs.
-
-    A graph destroyed while another is being captured invalidates that
-    capture (a graph that is cyclic garbage dies when the collector runs),
-    so the collector is off until the capture ends.
     """
 
     def __init__(self, step_fn, width: int):
@@ -236,7 +202,7 @@ class _StepGraph:
         if self.slot is None:
             self.slot = torch.zeros(self.width, dtype=torch.int32, device=device)
             self.loss = torch.zeros((), dtype=torch.float32, device=device)
-            self.stream = _capture_stream(device)
+            self.stream = capture_stream(device)
         if self.captured is not None and (
                 state.gen is not self.captured[0]
                 or [t.data_ptr() for t in _state_tensors(state, logp0)] != self.captured[1]):
@@ -261,35 +227,18 @@ class _StepGraph:
         return self.loss.clone()
 
     def _eager(self, state, row, logp0) -> None:
-        main = torch.cuda.current_stream(self.slot.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            self.loss.add_(self.step_fn(state, row, logp0))
-        main.wait_stream(self.stream)
+        run_on(self.stream, lambda: self.loss.add_(self.step_fn(state, row, logp0)))
         self.warm += 1
 
     def _capture(self, state, row, logp0) -> None:
-        dev = self.slot.device
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.gen)
         before = dict(sparse_update.launches_by_mode)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=self.stream):
-                self.loss.add_(self.step_fn(state, self.slot, logp0))
-        finally:
-            if collecting:
-                gc.enable()
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph, self.pool_bytes, _ = capture(
+            lambda: self.loss.add_(self.step_fn(state, self.slot, logp0)), self.stream,
+            [state.gen])
         counts = sparse_update.launches_by_mode
         self.tally = {k: n - before[k] for k, n in counts.items() if n != before[k]}
         for k, n in self.tally.items():
             counts[k] -= n
-        self.graph = graph
         self.captured = (state.gen, [t.data_ptr() for t in _state_tensors(state, logp0)])
 
 

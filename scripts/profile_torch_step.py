@@ -24,37 +24,27 @@ the bytes the captured step's graph pool reserved; writes the chrome trace to
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
-import tempfile
 import time
-from collections import defaultdict
 
 import numpy as np
-
-# CUDA API calls (runtime and low-level) that issue work to a stream
-HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
-                 "cudaMemcpyAsync", "cudaMemsetAsync", "cuMemcpyAsync",
-                 "cuMemsetD8Async", "cuMemsetD32Async", "cudaLaunchCooperativeKernel")
-
 
 # the row-sparse kernel's name (csrc/sparse_update.cu)
 SPARSE_KERNEL = "sparse_update_kernel"
 
 
-def _busy_ms(ops):
-    """Length of the union of [ts, ts + dur) intervals, in ms."""
-    total, end = 0.0, -1.0
-    for ts, dur in sorted((k["ts"], k["dur"]) for k in ops):
-        if ts >= end:
-            total += dur
-            end = ts + dur
-        elif ts + dur > end:
-            total += ts + dur - end
-            end = ts + dur
-    return total / 1e3
+def _trace_helper():
+    """``utils/profiling.py::trace`` of this script's checkout, loaded by
+    path: ``--root`` may name a checkout that lacks it."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "gru4rec_tpu_torch", "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("_profiling", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.trace
 
 
 def main():
@@ -108,38 +98,14 @@ def main():
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / S
 
-    from torch.profiler import ProfilerActivity, profile
-
     sparse_update.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(2 * S)
-        torch.cuda.synchronize()
-    trace = args.trace or os.path.join(tempfile.mkdtemp(), "trace.json")
+    rec = _trace_helper()(lambda: run(2 * S), S, args.trace)
     launched = sum(sparse_update.launches_by_mode.values())
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    copies = [e for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")
-              and "dur" in e]
-    if not kernels:
-        raise SystemExit("the profiler recorded no CUDA kernels")
-    launches = defaultdict(int)
-    for e in events:
-        if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("name") in HOST_LAUNCHES:
-            launches[e["name"]] += 1
-    by_name = defaultdict(lambda: [0.0, 0])
-    for k in kernels:
-        by_name[k["name"]][0] += k["dur"] / 1e3
-        by_name[k["name"]][1] += 1
-    window_ms = (max(k["ts"] + k["dur"] for k in kernels)
-                 - min(k["ts"] for k in kernels)) / 1e3
-    busy = _busy_ms(kernels + copies)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    busy = rec["device_busy_ms"]
     runner = getattr(chunk_fn, "runner", None)
     # the row-sparse kernel's runs in the trace against the wrapper's count
     # (which a graph replay adds its captured tally to)
-    traced = sum(1 for k in kernels if SPARSE_KERNEL in k["name"])
+    traced = round(sum(v[1] for n, v in rec["by_name"].items() if SPARSE_KERNEL in n) * S)
     if traced != launched:
         raise SystemExit(f"the trace holds {traced} runs of {SPARSE_KERNEL}, the "
                          f"launch counters {launched}")
@@ -149,18 +115,18 @@ def main():
         "card": nvidia_smi_line(),
         "steps": S,
         "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy / S,
-        "idle_share_of_wall": 1.0 - busy / S / wall_ms,
-        "kernel_window_ms_per_step": window_ms / S,
-        "host_launches_per_step": sum(launches.values()) / S,
-        "host_launches_by_call": {k: v / S for k, v in sorted(launches.items())},
-        "kernel_launches_per_step": len(kernels) / S,
-        "device_copies_per_step": len(copies) / S,
+        "device_busy_ms_per_step": busy,
+        "idle_share_of_wall": 1.0 - busy / wall_ms,
+        "kernel_window_ms_per_step": rec["kernel_window_ms"],
+        "host_launches_per_step": rec["host_launches"],
+        "host_launches_by_call": rec["host_launches_by_call"],
+        "kernel_launches_per_step": rec["kernels"],
+        "device_copies_per_step": rec["device_copies"],
         "sparse_update_runs_per_step": traced / S,
         "sparse_update_counted_per_step": launched / S,
         "graph_pool_bytes": getattr(runner, "pool_bytes", None),
-        "kernels": [{"name": n[:100], "ms_per_step": v[0] / S, "calls_per_step": v[1] / S}
-                    for n, v in ranked],
+        "kernels": [{"name": n[:100], "ms_per_step": v[0], "calls_per_step": v[1]}
+                    for n, v in rec["by_name"].items()],
     }))
 
 

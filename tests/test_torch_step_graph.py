@@ -37,6 +37,7 @@ from gru4rec_tpu_torch.ops.kernels.sparse_update import log_decay  # noqa: E402
 from gru4rec_tpu_torch.train import step as tstep  # noqa: E402
 from gru4rec_tpu_torch.train import optimizers  # noqa: E402
 from gru4rec_tpu_torch.train.optimizers import Optimizer, make_optimizer  # noqa: E402
+from gru4rec_tpu_torch.utils import cuda_graph  # noqa: E402
 
 N_ITEMS, B, N_SAMPLE, T = 30, 4, 6, 7
 ADAPTS = (None, "adagrad", "rmsprop", "adadelta", "adam")  # None: plain SGD
@@ -448,7 +449,7 @@ def test_cuda_chunk_functions_leave_no_memory_behind():
         state = tstep.init_train_state(cfg, N_ITEMS, dev)
         chunk_fn = tstep.make_chunk_fn(cfg, N_ITEMS)
         run_chunks(cfg, state, chunk_fn)
-        assert chunk_fn.runner.stream is tstep._capture_stream(dev)
+        assert chunk_fn.runner.stream is cuda_graph.capture_stream(dev)
         del state, chunk_fn
         gc.collect()
         torch.cuda.synchronize()
