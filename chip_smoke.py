@@ -133,11 +133,21 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    on its rows with local indices and ``sr_seed=(seed, r0)``: bit-equal to
    the whole-table call (``r0`` and ``max_abs_err`` per shard).
    ``mesh_1x1``: ``fit(mesh=make_mesh(1, 1))`` of the flagship over NCCL
-   on ``cuda:0`` for the train phase's epoch: loss, every parameter and
-   optimizer leaf, and Recall/MRR@1/5/20 of ``evaluate(mesh=)`` bit-equal
-   to the train phase's; K1 once per step; ``predict_topk(mesh=)`` at batch
-   1, 64 and 256 equal to the single-device call (warm median ms per call
-   of both in turns, the mesh call's device ms, events/s).
+   on ``cuda:0`` for the train phase's epoch, through the captured mesh
+   step (``parallel/dist_step.py``: three eager steps, then one CUDA graph,
+   collectives included, replayed per step; ``graph`` as in the training
+   phases): loss, every parameter and optimizer leaf, and Recall/MRR@1/5/20
+   of ``evaluate(mesh=)`` (captured, and its eager loop) bit-equal to the
+   train phase's; K1 once per step, replays counted; the same fit through
+   the eager loop bit-equal; the flagship with ``bfloat16_sr`` on the mesh
+   bit-equal to ``train_sr`` (K2 once per step, its seeds read on the
+   device); ``mesh_1x1_steps``: the flagship's chunk function one device
+   captured, mesh captured and mesh eager over the same windows in turns
+   (ms per step, events/s, device busy ms, idle share, host launches,
+   kernels and copies per step, pool bytes); ``predict_topk(mesh=)`` at
+   batch 1, 64 and 256 through its captured call, equal to the
+   single-device call (warm median ms per call of both in turns, the mesh
+   call's device ms and host launches, events/s).
    ``mesh_2x2_shared_card``: four ranks that the script spawns
    (``chip_smoke.py --mesh-rank <rank> <port> <dir>``), all on ``cuda:0``
    over gloo, which the script names (NCCL takes one rank per card): the
@@ -170,7 +180,13 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    retailrocket`` with the paramfile as published on a synthetic split of
    30,000 events (exit 1, ``PARITY FAIL``, a report of 8 finite metrics),
    ``rsc15.preprocess`` on synthetic raw clicks (four TSVs);
-25. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+25. hbm_budget — ``scripts/measure_hbm_budget_torch.py``: ``table`` (the
+   bytes per item and fixed of the parameters, the optimizer state and the
+   run's buffers for each adapt x ``opt_state_dtype`` at GRU-512, batch 240,
+   with the graph pool and the capture stream's workspace read from one
+   probe on the card) and one ``try`` at 1,000,000 items with adam and
+   ``bfloat16_sr`` (``ok``, K3 once per step, its memory reserved);
+26. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -805,24 +821,29 @@ def _replayed(eager, captured, replays):
 
 @contextlib.contextmanager
 def _chunk_fns(eager=False):
-    """The chunk functions that ``fit`` makes while the block runs, in the
-    yielded list; with ``eager`` they run the eager loop, the captured
-    step's plain version (``make_chunk_fn(..., _eager=True)``)."""
+    """The chunk functions that ``fit`` makes while the block runs, on one
+    device or on a mesh, in the yielded list; with ``eager`` they run the
+    eager loop, the captured step's plain version (``_eager=True``)."""
     from gru4rec_tpu_torch.models import gru4rec
+    from gru4rec_tpu_torch.parallel import dist_step
     from gru4rec_tpu_torch.train import step as tstep
 
     made = []
-    make = gru4rec.make_chunk_fn
+    make, make_dist = gru4rec.make_chunk_fn, gru4rec.make_dist_chunk_fn
 
     def recorded(cfg, n_items):
         made.append(tstep.make_chunk_fn(cfg, n_items, _eager=eager))
         return made[-1]
 
-    gru4rec.make_chunk_fn = recorded
+    def recorded_dist(cfg, n_items, mesh):
+        made.append(dist_step.make_dist_chunk_fn(cfg, n_items, mesh, _eager=eager))
+        return made[-1]
+
+    gru4rec.make_chunk_fn, gru4rec.make_dist_chunk_fn = recorded, recorded_dist
     try:
         yield made
     finally:
-        gru4rec.make_chunk_fn = make
+        gru4rec.make_chunk_fn, gru4rec.make_dist_chunk_fn = make, make_dist
 
 
 def _graph_record(phase, made, steps):
@@ -2317,21 +2338,125 @@ def phase_mesh_shard_kernel(smi_line):
                                      f"whole-table call: {rec}")
 
 
-def phase_mesh_1x1(flagship, train_rec, smi_line):
+MESH_WINDOW = 64   # mesh_1x1's steps per timed window of the chunk functions
+MESH_ROUNDS = 4    # timed windows of each way, in turns
+
+
+def _mesh_ways(mesh, smi_line):
+    """The flagship's chunk function three ways on the same windows of its
+    schedule: ``train`` (one device, the captured step), ``mesh`` (the 1x1
+    mesh's captured step) and ``mesh_eager`` (its eager loop). After a
+    warm-up window (the eager steps and the capture), ``MESH_ROUNDS``
+    windows of ``MESH_WINDOW`` steps each, the ways in turns (the order
+    reversed every round): ms per step and events/s, median over the
+    rounds; then one traced window each (``utils/profiling.py``): device
+    busy ms, idle share, host launches, kernels and copies per step."""
+    import torch
+
+    from gru4rec_tpu_torch.models.gru import pad_items
+    from gru4rec_tpu_torch.parallel.dist_step import make_dist_chunk_fn, shard_train_state
+    from gru4rec_tpu_torch.train.step import init_train_state, make_chunk_fn, make_generator
+    from gru4rec_tpu_torch.utils.profiling import trace
+
+    cfg = flagship_cfg()
+    itemidmap, sched, packed, _ = _flagship_schedule(cfg)
+    n = len(itemidmap)
+    dev = mesh.device
+    samp1 = torch.from_numpy(packed).to(dev)
+    logp0 = torch.zeros(pad_items(n, cfg.item_pad_multiple), device=dev)
+    ways = {}
+    for name in ("train", "mesh", "mesh_eager"):
+        if name == "train":
+            ways[name] = (init_train_state(cfg, n, dev), make_chunk_fn(cfg, n))
+            continue
+        state = init_train_state(cfg, n, "cpu")
+        state.gen = make_generator(cfg.seed, dev)
+        ways[name] = (shard_train_state(state, cfg, mesh),
+                      make_dist_chunk_fn(cfg, n, mesh, _eager=name == "mesh_eager"))
+
+    def run(name, w):
+        state, fn = ways[name]
+        sl = [a[w * MESH_WINDOW:(w + 1) * MESH_WINDOW]
+              for a in (sched.in_idx, sched.out_idx, sched.valid, sched.reset)]
+        return fn(state, *sl, samp1, logp0)[1]
+
+    for name in ways:
+        run(name, 0)
+    torch.cuda.synchronize()
+    timed = {name: [] for name in ways}
+    for r in range(MESH_ROUNDS):
+        for name in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            t0 = time.perf_counter()
+            events = run(name, 1 + r)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0, events))
+    out = {}
+    for name, (state, fn) in ways.items():
+        traced = trace(lambda: run(name, 1 + MESH_ROUNDS), MESH_WINDOW)
+        ms = float(np.median([sec for sec, _ in timed[name]])) * 1e3 / MESH_WINDOW
+        out[name] = {
+            "ms_per_step": ms,
+            "events_per_s": float(np.median([ev / sec for sec, ev in timed[name]])),
+            "device_busy_ms_per_step": traced["device_busy_ms"],
+            "idle_share": 1.0 - traced["device_busy_ms"] / ms,
+            "host_launches_per_step": traced["host_launches"],
+            "host_launches_by_call": traced["host_launches_by_call"],
+            "kernels_per_step": traced["kernels"],
+            "device_copies_per_step": traced["device_copies"],
+            "pool_bytes": None if fn.runner is None else fn.runner.pool_bytes,
+            "replays": None if fn.runner is None else fn.runner.replays}
+    emit({"phase": "mesh_1x1_steps", "window": MESH_WINDOW, "rounds": MESH_ROUNDS, **out,
+          "card": smi_line})
+    return out
+
+
+def _mesh_fit(cfg, train, mesh, eager=False):
+    """``fit(mesh=)`` for one epoch with the launch counters set to 0 just
+    before and read just after: the model, its launches and the chunk
+    function it made."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    model = GRU4Rec(cfg, device=DEVICE)
+    sparse_update.reset_launches()
+    with _chunk_fns(eager=eager) as made:
+        model.fit(train, mesh=mesh)
+    torch.cuda.synchronize()
+    return model, dict(sparse_update.launches_by_mode), made
+
+
+def _differ(model, want):
+    """The parameter and optimizer-state leaves of ``model`` whose bits
+    differ from ``want`` ({path: tensor})."""
+    got = dict(_leaves({"params": model._train_state.params,
+                        "opt_state": model._train_state.opt_state}))
+    return [k for k in want if k not in got or not _same_bits(got[k], want[k].cpu())]
+
+
+def phase_mesh_1x1(flagship, train_rec, sr_rec, smi_line):
     """``fit(mesh=make_mesh(1, 1))`` of the flagship over NCCL on ``cuda:0``
-    for the train phase's epoch, ``evaluate(mesh=)`` and
-    ``predict_topk(mesh=)``: bit-equal to the train phase's model and to
-    the single-device calls; K1 once per step; the warm median ms per
-    ``predict_topk`` call, mesh and single-device in turns, the mesh call's
-    device ms (as ``serve`` reads it) and events/s at batch 1, 64 and 256;
-    the seconds ``make_mesh`` takes (it sets up each group's communicator)."""
+    for the train phase's epoch: one captured step replayed per step after
+    the warm-up (``graph``), loss, every parameter and optimizer leaf, and
+    Recall/MRR@1/5/20 of ``evaluate(mesh=)`` (captured, and its eager loop)
+    bit-equal to the train phase's; K1 once per step, replays counted; the
+    same fit through the eager loop (``make_dist_chunk_fn(...,
+    _eager=True)``) bit-equal too; the flagship with ``bfloat16_sr`` on the
+    mesh bit-equal to ``train_sr`` (``sr_rec``: its loss and leaves), K2
+    once per step; the three ways' steps in turns (``_mesh_ways``);
+    ``predict_topk(mesh=)`` at batch 1, 64 and 256 through its captured
+    call, equal to the single-device call (warm median ms per call of both
+    in turns, the mesh call's device ms and host launches, events/s); the
+    seconds ``make_mesh`` takes (it sets up each group's communicator)."""
     import torch
     import torch.distributed as dist
 
-    from gru4rec_tpu_torch import GRU4Rec, evaluate
+    from gru4rec_tpu_torch import evaluate
     from gru4rec_tpu_torch.ops.kernels import sparse_update
     from gru4rec_tpu_torch.ops.kernels.proto_measure import device_times
     from gru4rec_tpu_torch.parallel import make_mesh
+    from gru4rec_tpu_torch.utils.profiling import trace
 
     t_phase = time.time()
     train, test = synth_split()
@@ -2339,25 +2464,45 @@ def phase_mesh_1x1(flagship, train_rec, smi_line):
     mesh = make_mesh(1, 1)
     mesh_seconds = time.perf_counter() - t0
     try:
-        model = GRU4Rec(flagship_cfg(), device=DEVICE)
-        sparse_update.reset_launches()
-        model.fit(train, mesh=mesh)
-        torch.cuda.synchronize()
-        launches = dict(sparse_update.launches_by_mode)
+        model, launches, made = _mesh_fit(flagship_cfg(), train, mesh)
+        steps = sum(e["steps"] for e in model.epoch_stats)
+        graph = _graph_record("mesh_1x1", made, steps)
         rec, mrr = evaluate(model, test, cut_off=[1, 5, 20], batch_size=512, mesh=mesh)
+        eval_eager = evaluate(model, test, cut_off=[1, 5, 20], batch_size=512, mesh=mesh,
+                              _eager=True)
         want = dict(_leaves({"params": flagship._train_state.params,
                              "opt_state": flagship._train_state.opt_state}))
-        got = dict(_leaves({"params": model._train_state.params,
-                            "opt_state": model._train_state.opt_state}))
-        differ = [k for k in want if k not in got or not _same_bits(got[k], want[k].cpu())]
-        steps = sum(e["steps"] for e in model.epoch_stats)
+        differ = _differ(model, want)
+        eager_model, eager_launches, eager_made = _mesh_fit(flagship_cfg(), train, mesh,
+                                                            eager=True)
+        eager_differ = _differ(eager_model, dict(_leaves({
+            "params": model._train_state.params, "opt_state": model._train_state.opt_state})))
+        eager_stats = eager_model.epoch_stats[-1]
+        del eager_model
+        sr_model, sr_launches, sr_made = _mesh_fit(
+            flagship_cfg(opt_state_dtype="bfloat16_sr"), train, mesh)
+        sr_graph = _graph_record("mesh_1x1 bfloat16_sr", sr_made, steps)
+        sr_differ = _differ(sr_model, sr_rec["leaves"])
+        sr_loss = sr_model.epoch_stats[-1]["loss"]
+        del sr_model
+        stats = model.epoch_stats[-1]
         out = {"phase": "mesh_1x1", "backend": dist.get_backend(), "device": str(mesh.device),
-               "mesh_seconds": mesh_seconds, "steps": steps, "loss": model.epoch_stats[-1]["loss"],
+               "capturable": mesh.capturable, "mesh_seconds": mesh_seconds, "steps": steps,
+               "loss": model.epoch_stats[-1]["loss"],
                "train_loss": flagship.epoch_stats[-1]["loss"],
-               "events_per_s": model.epoch_stats[-1]["events"] / model.epoch_stats[-1]["seconds"],
-               "leaves": len(want), "leaves_differ": differ,
+               "events_per_s": stats["events"] / stats["seconds"],
+               "train_events_per_s": train_rec["events_per_s"],
+               "graph": graph, "leaves": len(want), "leaves_differ": differ,
+               "eager_runner": None if eager_made[0].runner is None else "set",
+               "eager_leaves_differ": eager_differ, "eager_launches": eager_launches,
+               "eager_events_per_s": eager_stats["events"] / eager_stats["seconds"],
+               "sr_loss": sr_loss, "train_sr_loss": sr_rec["loss"], "sr_graph": sr_graph,
+               "sr_leaves_differ": sr_differ, "sr_launches": sr_launches,
                "recall": dict(zip(("@1", "@5", "@20"), rec)),
-               "mrr": dict(zip(("@1", "@5", "@20"), mrr)), "launches": launches}
+               "mrr": dict(zip(("@1", "@5", "@20"), mrr)),
+               "eval_graph_equals_eager": (rec, mrr) == tuple(eval_eager),
+               "launches": launches}
+        out["steps_in_turns"] = _mesh_ways(mesh, smi_line)
         rng = np.random.RandomState(1)
         catalog = model.itemidmap.index.values
         for batch in SERVE_BATCHES:
@@ -2376,26 +2521,48 @@ def phase_mesh_1x1(flagship, train_rec, smi_line):
             dev = device_times(lambda i: model.predict_topk(sess, calls[i], k=SERVE_K,
                                                             batch=batch, mesh=mesh),
                                steps=SERVE_REPS)
+            traced = trace(lambda: [model.predict_topk(sess, x, k=SERVE_K, batch=batch,
+                                                       mesh=mesh) for x in calls], SERVE_REPS)
+            g = model._serve_graphs.get(("topk", batch, SERVE_K, mesh))
             out[f"topk_batch{batch}"] = {
                 "same_as_single": bool(np.array_equal(ids_m, ids_s)
                                        and np.array_equal(sc_m, sc_s)),
+                "captured": g is not None and g.replays > 0,
+                "replays": None if g is None else g.replays,
+                "pool_bytes": None if g is None else g.pool_bytes,
                 "ms": float(np.median(wall["mesh"])) * 1e3,
                 "single_ms": float(np.median(wall["single"])) * 1e3,
                 "device_ms": sum(v[0] for v in dev.values()) / SERVE_REPS / 1e3,
+                "host_launches": traced["host_launches"],
+                "host_launches_by_call": traced["host_launches_by_call"],
                 "events_per_s": batch * SERVE_REPS / sum(wall["mesh"])}
     finally:
         dist.destroy_process_group()
     out.update(seconds=time.time() - t_phase, card=smi_line)
     emit(out)
-    if out["backend"] != "nccl" or differ or out["loss"] != out["train_loss"]:
+    if out["backend"] != "nccl" or not out["capturable"] or differ \
+            or out["loss"] != out["train_loss"]:
         raise AssertionError(f"mesh_1x1 differs from the train phase: {out}")
-    if out["recall"] != train_rec["recall"] or out["mrr"] != train_rec["mrr"]:
+    if out["recall"] != train_rec["recall"] or out["mrr"] != train_rec["mrr"] \
+            or not out["eval_graph_equals_eager"]:
         raise AssertionError(f"mesh_1x1 metrics {out['recall']} {out['mrr']} against "
-                             f"{train_rec['recall']} {train_rec['mrr']}")
-    if launches != {**dict.fromkeys(sparse_update.MODES, 0), "K1": steps}:
-        raise AssertionError(f"mesh_1x1 launched {launches} in {steps} steps")
-    if not all(out[f"topk_batch{b}"]["same_as_single"] for b in SERVE_BATCHES):
-        raise AssertionError(f"predict_topk(mesh=) differs from the single-device call: {out}")
+                             f"{train_rec['recall']} {train_rec['mrr']} and the eager loop")
+    if eager_differ or out["eager_runner"] is not None:
+        raise AssertionError(f"mesh_1x1's captured fit differs from its eager loop: {out}")
+    for name, got, mode in (("graph", launches, "K1"), ("eager", eager_launches, "K1"),
+                            ("bfloat16_sr", sr_launches, "K2")):
+        if got != {**dict.fromkeys(sparse_update.MODES, 0), mode: steps}:
+            raise AssertionError(f"mesh_1x1 {name} launched {got} in {steps} steps")
+    if sr_differ or sr_loss != sr_rec["loss"]:
+        raise AssertionError(f"mesh_1x1 bfloat16_sr differs from train_sr: {sr_differ}, "
+                             f"loss {sr_loss} against {sr_rec['loss']}")
+    ways = out["steps_in_turns"]
+    if ways["mesh"]["replays"] is None or ways["mesh_eager"]["replays"] is not None:
+        raise AssertionError(f"mesh_1x1 ways: {ways}")
+    if not all(out[f"topk_batch{b}"]["same_as_single"] and out[f"topk_batch{b}"]["captured"]
+               for b in SERVE_BATCHES):
+        raise AssertionError(f"predict_topk(mesh=) differs from the single-device call or "
+                             f"was not captured: {out}")
 
 
 def _flagship_schedule(cfg):
@@ -2786,6 +2953,55 @@ def phase_examples(smi_line):
                              f"\n{pre.stderr[-3000:]}")
 
 
+# ---------------------------------------------------------------------- #
+# hbm_budget: scripts/measure_hbm_budget_torch.py
+HBM_TRY = ("1000000", "adam", "bfloat16_sr")  # about 5.4 GB of state: fits, reaches K3
+HBM_TIMEOUT = 600  # seconds for the script's two runs together
+
+
+def phase_hbm_budget(smi_line):
+    """``scripts/measure_hbm_budget_torch.py`` as two processes at once:
+    ``table`` (bytes per item and fixed of the parameters, the optimizer
+    state and the run's buffers per (adapt, opt_state_dtype) at GRU-512, and
+    the fixed buffers of a captured step read from one probe on the card: the
+    graph pool and the capture stream's cuBLAS workspace) and one ``try`` at
+    ``HBM_TRY``: ``ok``, K3 once per step of its 64-step chunk (3 eager, the
+    rest replays), its ``max_memory_reserved`` and pool. The ladder
+    (``boundary``) takes minutes and is not run here."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "measure_hbm_budget_torch.py")
+    t0 = time.time()
+    procs = {name: subprocess.Popen([sys.executable, script, *args], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, args in (("table", ("table",)), ("try", ("try",) + HBM_TRY))}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=max(1.0, t0 + HBM_TIMEOUT - time.time()))
+            if p.returncode != 0:
+                raise AssertionError(f"hbm_budget {name}: exit {p.returncode}\n"
+                                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            outs[name] = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for row in outs["table"]:
+        emit({"phase": "hbm_budget", **row})
+    (probe,) = outs["try"]
+    emit({"phase": "hbm_budget_try", **probe, "seconds": time.time() - t0})
+    if len(outs["table"]) != 6 or not all(
+            isinstance(r["graph_pool_bytes"], int) and r["graph_pool_bytes"] > 0
+            and isinstance(r["capture_workspace_bytes"], int)
+            and r.get("predicted_max_items", 0) > 0 for r in outs["table"]):
+        raise AssertionError(f"hbm_budget table: {outs['table']}")
+    if probe["result"] != "ok" or probe["launches"] != {"K3": probe["warmup_steps"]
+                                                       + probe["replays"]} \
+            or probe["replays"] < 1:
+        raise AssertionError(f"hbm_budget try: {probe}")
+
+
 # the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
@@ -2833,6 +3049,11 @@ def main() -> int:
                                                   mean_len=RSC15_MEAN_SESSION_LEN)[0],
                          onehot_model, paths["train_onehot"]),
         "train_sgd": (flagship_cfg(adapt=None), synth_split()[0], sgd_model, sgd)})
+    # train_sr's reading for the mesh phase's bfloat16_sr fit
+    sr_rec = {"loss": sr_model.epoch_stats[-1]["loss"],
+              "leaves": {k: v.cpu() for k, v in _leaves({
+                  "params": sr_model._train_state.params,
+                  "opt_state": sr_model._train_state.opt_state})}}
     del sr_model, adam_model, onehot_model, sgd_model
     phase_learn()
     paths["learn_sr"] = phase_learn_sr(smi_line)
@@ -2846,10 +3067,11 @@ def main() -> int:
     phase_legacy_eval(flagship, smi_line)
     phase_paropt(smi_line)
     phase_mesh_shard_kernel(smi_line)
-    phase_mesh_1x1(flagship, paths["train"], smi_line)
+    phase_mesh_1x1(flagship, paths["train"], sr_rec, smi_line)
     phase_mesh_2x2_shared_card(smi_line)
     paths["published_rees46"] = phase_published(smi_line)["rees46"]
     phase_examples(smi_line)
+    phase_hbm_budget(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{

@@ -36,7 +36,8 @@ final activation applies per shard, a softmax takes each row's max and sum
 over ``model``, and the rank is the sum over ``model`` of each shard's
 comparison counts; the counters are summed over ``data`` at the end.
 :func:`make_dist_topk_fn` serves the same way, merging per-shard top-k
-candidates.
+candidates. On an NCCL mesh both are captured as on one device, the
+collectives inside the graph; a gloo mesh runs them eagerly.
 """
 
 from __future__ import annotations
@@ -337,11 +338,13 @@ def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time
 
 class _EvalGraph:
     """The evaluation step captured as a CUDA graph and replayed per step:
-    the counterpart of JAX's compiled evaluator (``make_eval_chunk_fn``, a
-    ``lax.scan`` over the steps with the carry donated).
+    the counterpart of JAX's compiled evaluators (``make_eval_chunk_fn`` and,
+    on a mesh, ``make_dist_eval_chunk_fn``: a ``lax.scan`` over the steps
+    with the carry donated).
 
-    It owns the lanes ``H``, the counters ``rec`` and ``mrr``, the dither
-    generator ``gen`` and two input slots: ``slot``, one step's row of the
+    It owns the lanes ``H`` (``lanes`` of them: the batch, or a mesh rank's
+    block of it), the counters ``rec`` and ``mrr``, the dither generator
+    ``gen`` and two input slots: ``slot``, one step's row of the
     packed schedule (``train/step.py::StackLayout``: ``in | out | valid |
     reset``), and ``item_idx``, the subset's item indices. :meth:`run`
     zeroes the state in place and seeds ``gen``; the first
@@ -355,10 +358,11 @@ class _EvalGraph:
     among them the (batch, n_items) score matrices; ``pool_bytes`` is its
     size."""
 
-    def __init__(self, step, cfg, batch_size: int, n_cutoffs: int, n_subset, device):
+    def __init__(self, step, cfg, batch_size: int, lanes: int, n_cutoffs: int, n_subset,
+                 device):
         self.step = step
         self.layout = StackLayout(batch_size, 0)
-        self.H = gru.init_hidden(cfg, batch_size, device)
+        self.H = gru.init_hidden(cfg, lanes, device)
         self.rec = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
         self.mrr = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
         self.gen = torch.Generator(device=device)
@@ -412,11 +416,13 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
 
     On a CUDA device the steps replay one captured step (:class:`_EvalGraph`),
     bit-equal to the eager loop, which is its plain version: the CPU runs
-    that loop, and so do an evaluation of at most ``WARMUP_STEPS`` steps,
-    ``mesh=`` (its collectives run over gloo too, which cannot be captured)
-    and ``_eager=True``. A graph is captured once per evaluator: the config,
-    ``n_items``, the cutoffs, the tie mode, the batch, the subset and its
-    length, and the (pointer, shape, dtype) of every parameter it reads.
+    that loop, and so do an evaluation of at most ``WARMUP_STEPS`` steps, a
+    gloo ``mesh`` (its collectives run on host threads, which a graph cannot
+    capture) and ``_eager=True``; an NCCL mesh captures its step,
+    collectives included. A graph is captured once per evaluator: the
+    config, ``n_items``, the cutoffs, the tie mode, the batch, the subset
+    and its length, the mesh's shape and this rank, and the (pointer, shape,
+    dtype) of every parameter it reads.
     ``_graphs`` (a caller-owned dict) keeps the graphs across calls by that
     key: ``fit`` keeps one per call, since it validates the same live
     parameters every epoch. Without it the call frees its graph and gives
@@ -474,24 +480,29 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     seed = cfg.seed + 1
     if mesh is None:
         step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
-        graphed = dev.type == "cuda" and not _eager and sched.n_steps > WARMUP_STEPS
-        H = None if graphed else gru.init_hidden(cfg, batch_size, dev)
+        lanes = batch_size
+        capturable = dev.type == "cuda"
     else:
         step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh, batch_size,
                                    items_subset)
         seed += mesh.mi * SHARD_SEED_STRIDE
-        graphed = False
-        H = gru.init_hidden(cfg, mesh.lanes(batch_size)[1], dev)
+        lanes = mesh.lanes(batch_size)[1]
+        capturable = mesh.capturable
+    # every rank of a mesh has the same schedule, so all decide alike
+    graphed = capturable and not _eager and sched.n_steps > WARMUP_STEPS
     if graphed:
         key = (json.dumps(cfg.to_dict(), sort_keys=True, default=str), gru_model.n_items,
                tuple(int(c) for c in cutoffs), mode, batch_size, items_subset,
-               None if item_idx is None else len(item_idx), binding(params))
+               None if item_idx is None else len(item_idx),
+               None if mesh is None else (tuple(mesh.shape.values()), mesh.rank),
+               binding(params))
         graphs = {} if _graphs is None else _graphs
         if key not in graphs:
-            graphs[key] = _EvalGraph(step, cfg, batch_size, len(cutoffs),
+            graphs[key] = _EvalGraph(step, cfg, batch_size, lanes, len(cutoffs),
                                      None if item_idx is None else len(item_idx), dev)
         rec, mrr = graphs[key].run(params, stack, seed, item_idx)
     else:
+        H = gru.init_hidden(cfg, lanes, dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)

@@ -42,7 +42,7 @@ from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.data.loader import apply_itemidmap, build_itemidmap
 from gru4rec_tpu_torch.data.scheduler import build_schedule, session_order
 from gru4rec_tpu_torch.data.tools import compute_offset, sort_if_needed
-from gru4rec_tpu_torch.eval.evaluation import evaluate
+from gru4rec_tpu_torch.eval.evaluation import evaluate, make_dist_topk_fn
 from gru4rec_tpu_torch.io.checkpoint import (_is_primary_process, load_model,
                                              load_train_checkpoint, save_model,
                                              save_train_checkpoint)
@@ -654,29 +654,33 @@ class GRU4Rec:
         return torch.from_numpy(self._item_index_array(item_ids)).to(self.device)
 
     def _graphed(self, mesh=None) -> bool:
-        return mesh is None and self.device.type == "cuda" and self._serve_graphs is not None
+        """Whether a serving call replays a captured graph: on a card, and on
+        a mesh only over NCCL with the lanes on the mesh's card (the graph
+        updates them in place). The CPU, a gloo mesh and lanes on another
+        device than the mesh's serve eagerly."""
+        if self._serve_graphs is None or self.device.type != "cuda":
+            return False
+        return mesh is None or (mesh.capturable and self.H[0].device == mesh.device)
 
-    def _serve_graph(self, key, session_ids, input_item_ids, finish):
+    def _serve_graph(self, key, session_ids, input_item_ids, params, make_call):
         """The outputs of the captured serving call ``key`` on this
-        request: the full-catalog serving step, then ``finish(scores)``,
-        which gives the call's outputs. The graph is captured again
-        when the parameters or lanes it is bound to change (a new lane
-        width, ``cast_for_serving``, ``loadmodel``, a ``fit`` that grows
-        the tables, the device copy of ``fit(mesh=)``'s parameters)."""
-        params = self._serving_params()
+        request. ``make_call()`` builds the call, ``call(params, H,
+        in_idx)``: it updates the lanes ``H`` in place and returns the
+        call's outputs; the graph runs it after the lane reset. The graph is
+        captured again when the parameters or lanes it is bound to change (a
+        new lane width, ``cast_for_serving``, ``loadmodel``, a ``fit`` that
+        grows the tables, the device copy or the shards of ``fit(mesh=)``'s
+        parameters)."""
         bound = (self.n_items, binding(params, self.H))
         graph = self._serve_graphs.get(key)
         if graph is None or graph.bound != bound:
-            step = self._build_predict_fn(False)
+            call = make_call()
             H = list(self.H)
 
             def fn(in_idx, keep):
                 for h in H:
                     h.mul_(keep[:, None])
-                H_new, yhat = step(params, H, in_idx)
-                for h, hn in zip(H, H_new):
-                    h.copy_(hn)
-                return finish(yhat)
+                return call(params, H, in_idx)
 
             graph = _ServeGraph(fn, len(H[0]), self.device, bound)
             self._serve_graphs[key] = graph
@@ -700,7 +704,8 @@ class GRU4Rec:
         self._ensure_lanes(batch)
         if not subset and self._graphed():
             preds = self._serve_graph(("next", batch), session_ids, input_item_ids,
-                                      lambda yhat: yhat.contiguous())
+                                      self._serving_params(),
+                                      lambda: self._serving_call(lambda y: y.contiguous()))
             return pd.DataFrame(data=preds.cpu().numpy().T, index=self.itemidmap.index)
         self._reset_changed_lanes(session_ids)
         in_idx = self._item_indices(input_item_ids)
@@ -734,8 +739,11 @@ class GRU4Rec:
         against its row-shard of the catalog, and the per-shard top-k
         candidates are merged (``eval/evaluation.py::make_dist_topk_fn``).
         Every rank returns the whole (batch, k); the lane state is the one
-        the single-device calls use. It stays eager: its collectives run
-        over gloo too, which cannot be captured."""
+        the single-device calls use. On an NCCL mesh the call replays one
+        captured call per (batch, k, mesh), collectives included; a gloo
+        mesh serves eagerly (its collectives run on host threads, which a
+        graph cannot capture). Using a new mesh drops the graphs of the
+        others, with their pools and communicators."""
         if self.error_during_train:
             raise Exception("Training ended with an error; model is unusable.")
         if mesh is not None:
@@ -743,14 +751,27 @@ class GRU4Rec:
         k = min(int(k), self.n_items)
         self._ensure_lanes(batch)
         if self._graphed(mesh):
-            scores, idx = self._serve_graph(
-                ("topk", batch, k), session_ids, input_item_ids,
-                lambda yhat: torch.topk(yhat, k, dim=1, sorted=True))
+            if mesh is None:
+                key, params = ("topk", batch, k), self._serving_params()
+
+                def make_call():
+                    return self._serving_call(lambda y: torch.topk(y, k, dim=1, sorted=True))
+            else:
+                for old in [key for key in self._serve_graphs
+                            if len(key) == 4 and key[3] is not mesh]:
+                    del self._serve_graphs[old]
+                key, params = ("topk", batch, k, mesh), self._mesh_shards(mesh)
+
+                def make_call():
+                    return self._mesh_topk_call(
+                        make_dist_topk_fn(self.config, self.n_items, k, mesh), batch, mesh)
+            scores, idx = self._serve_graph(key, session_ids, input_item_ids, params,
+                                            make_call)
         else:
             self._reset_changed_lanes(session_ids)
             in_idx = self._item_indices(input_item_ids)
             if mesh is not None:
-                idx, scores = self._predict_topk_dist(in_idx, k, batch, mesh)
+                scores, idx = self._predict_topk_dist(in_idx, k, batch, mesh)
             else:
                 H_new, yhat = self._build_predict_fn(False)(self._serving_params(), self.H,
                                                             in_idx)
@@ -764,25 +785,56 @@ class GRU4Rec:
         items = np.asarray(self.itemidmap.index[idx.ravel()], dtype=object)
         return items.reshape(idx.shape), scores.cpu().numpy()
 
-    def _predict_topk_dist(self, in_idx, k, batch, mesh):
-        """:meth:`predict_topk`'s step on ``mesh``: ``(ids, scores)`` of the
-        whole batch on every rank. The canonical parameters are sharded
-        once and kept until they change."""
-        from gru4rec_tpu_torch.eval.evaluation import make_dist_topk_fn
+    def _serving_call(self, finish):
+        """The single-device serving call for :meth:`_serve_graph`: the
+        full-catalog step, the lanes written back, then ``finish(scores)``."""
+        step = self._build_predict_fn(False)
 
-        cfg = self.config
-        lo, bl = mesh.lanes(batch)
+        def call(params, H, in_idx):
+            H_new, yhat = step(params, H, in_idx)
+            for h, hn in zip(H, H_new):
+                h.copy_(hn)
+            return finish(yhat)
+
+        return call
+
+    def _mesh_shards(self, mesh):
+        """This rank's shards of the canonical parameters, sharded once and
+        kept until the parameters or the mesh change."""
         cache = self._mesh_params
         if cache is None or cache[0] is not self.params or cache[1] is not mesh:
-            detect_scratch_layout(self.params, self.n_items, cfg, mesh)
-            cache = (self.params, mesh, shard_params(self.params, cfg, mesh))
+            detect_scratch_layout(self.params, self.n_items, self.config, mesh)
+            cache = (self.params, mesh, shard_params(self.params, self.config, mesh))
             self._mesh_params = cache
-        H = [h[lo:lo + bl].to(mesh.device) for h in self.H]
-        H_new, ids, scores = make_dist_topk_fn(cfg, self.n_items, k, mesh)(
-            cache[2], H, in_idx[lo:lo + bl].to(mesh.device))
-        for h, hn in zip(self.H, H_new):
-            h.copy_(mesh.all_gather(hn, "data"))
-        return mesh.all_gather(ids, "data"), mesh.all_gather(scores, "data")
+        return cache[2]
+
+    @staticmethod
+    def _mesh_topk_call(topk, batch, mesh):
+        """:meth:`predict_topk`'s call on ``mesh`` from ``topk``
+        (``make_dist_topk_fn``): the rank's block of the lanes scored
+        against its shards, the new lanes written back and ``(scores,
+        ids)`` of the whole batch, all gathered over ``data``."""
+        lo, bl = mesh.lanes(batch)
+
+        def call(shards, H, in_idx):
+            H_new, ids, scores = topk(shards, [h[lo:lo + bl] for h in H], in_idx[lo:lo + bl])
+            for h, hn in zip(H, H_new):
+                h.copy_(mesh.all_gather(hn, "data"))
+            return mesh.all_gather(scores, "data"), mesh.all_gather(ids, "data")
+
+        return call
+
+    def _predict_topk_dist(self, in_idx, k, batch, mesh):
+        """:meth:`predict_topk`'s step on ``mesh``, eagerly: ``(scores,
+        ids)`` of the whole batch on every rank."""
+        call = self._mesh_topk_call(make_dist_topk_fn(self.config, self.n_items, k, mesh),
+                                    batch, mesh)
+        H = [h.to(mesh.device) for h in self.H]
+        scores, ids = call(self._mesh_shards(mesh), H, in_idx.to(mesh.device))
+        for h, hm in zip(self.H, H):
+            if hm is not h:
+                h.copy_(hm)
+        return scores, ids
 
     # ------------------------------------------------------------------ #
     def cast_for_serving(self, dtype="bfloat16") -> "GRU4Rec":

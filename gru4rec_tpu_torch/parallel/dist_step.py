@@ -35,6 +35,12 @@ A fully padded step is skipped on the host, as in ``train/step.py``; the
 gate reads the global schedule, which every rank holds, so a rank whose own
 lanes are all padding still joins the step's collectives.
 
+The JAX package compiles a chunk into one program (``jax.jit`` of
+``shard_map`` over ``lax.scan``). Its counterpart on an NCCL mesh is the
+single-device one: the step, collectives included, captured once as a CUDA
+graph and replayed per live step (:func:`make_dist_chunk_fn`); gloo's
+collectives cannot be captured, so a gloo mesh runs the same step eagerly.
+
 The JAX package appends ``SCRATCH_ROWS`` (8) zero rows to every row-shard
 because its Pallas grid parks padded grid steps there. The port's kernel
 dedups the indices in its own pass and parks nothing, so a shard here is
@@ -51,11 +57,12 @@ from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.models import gru
 from gru4rec_tpu_torch.ops.losses import get_loss
 from gru4rec_tpu_torch.ops.sampling import draw_negatives
-from gru4rec_tpu_torch.ops.sr import step_seed
+from gru4rec_tpu_torch.ops.sr import step_seeds
 from gru4rec_tpu_torch.parallel.mesh import Mesh, local_block, param_specs, state_specs
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
-from gru4rec_tpu_torch.train.step import (DENSE_GROUPS, SR_TABLE_SALT, TrainState,
-                                          merge_dense, split_params, sparse_table_names)
+from gru4rec_tpu_torch.train.step import (DENSE_GROUPS, SR_TABLE_SALT, StackLayout,
+                                          TrainState, _StepGraph, merge_dense, split_params,
+                                          sparse_table_names)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -159,14 +166,24 @@ def make_row_gather(r0: int, rows_local: int, mesh: Mesh):
     return gather_rows
 
 
-def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh):
+def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh, _eager: bool = False):
     """The per-chunk training function on ``mesh``: the contract of
     ``train/step.py::make_chunk_fn`` (``chunk_fn(state, in_c, out_c,
     valid_c, reset_c, samp1, logp0, neg=None, sr_seeds=None) ->
     (loss_weighted_sum, event_count)``), with ``state`` this rank's sharded
     state (:func:`shard_train_state`) and the ``*_c`` the global (chunk, B)
-    host schedule, of which the rank uploads its lane block. Every rank
-    returns the global loss sum and event count."""
+    host schedule. Every rank returns the global loss sum and event count.
+
+    As on one device, a chunk goes up as one packed int32 stack
+    (``train/step.py::StackLayout``): the rank's lane block of the schedule
+    (JAX's ``sched_spec = P(None, "data")``), the chunk's negatives and one
+    stochastic-rounding seed per sparse table. A step reads its row; the
+    live count ``Mf`` is the gathered lanes' validity summed on the device.
+    On a capturable mesh (NCCL, ``Mesh.capturable``) the steps replay one
+    captured step, collectives included (``train/step.py::_StepGraph``,
+    ``chunk_fn.runner``); the state's tensors must stay the same from the
+    first chunk on. A gloo mesh, the CPU and ``_eager=True`` run the eager
+    loop, the graph's plain version (``chunk_fn.runner`` is then None)."""
     check_mesh(mesh)
     mode = gru.input_mode(cfg)
     loss_fn = get_loss(cfg.loss, cfg.n_sample, cfg.smoothing, cfg.bpreg)
@@ -174,10 +191,11 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh):
     B = cfg.batch_size
     n_sample = cfg.n_sample
     use_logq = bool(cfg.logq)
-    sparse_names = sparse_table_names(mode)
     lo, bl = mesh.lanes(B)
+    layout = StackLayout(bl, n_sample, sparse_table_names(mode) if opt.state_sr else ())
 
-    def step_fn(state, in_l, out_l, valid_l, reset_l, neg_t, Mf, logp0, seeds):
+    def step_fn(state, row, logp0):
+        in_l, out_l, valid_l, reset_l, neg_t, seeds = layout.split(row)
         params, opt_state = state.params, state.opt_state
         dev = params["Wy"].device
         rows_local = params["Wy"].shape[0]
@@ -187,6 +205,7 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh):
         lanes = mesh.all_gather(torch.stack([valid_l.to(torch.int32), out_l, in_l], dim=1),
                                 "data")
         valid_all, out_all, in_all = lanes[:, 0].bool(), lanes[:, 1], lanes[:, 2]
+        Mf = valid_all.sum(dtype=torch.float32)  # the step's global live count
         if n_sample > 0:
             col_valid = torch.cat([valid_all, torch.ones(n_sample, dtype=torch.bool, device=dev)])
             Y = torch.cat([torch.where(valid_all, out_all, 0), neg_t])
@@ -265,9 +284,11 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh):
                 idx_l = torch.where((idx >= r0) & (idx < r0 + rows_local), idx - r0, SENTINEL)
                 opt.apply_sparse(table, idx_l, g, opt_state["sparse"][name],
                                  sr_seed=None if seeds is None else (seeds[name], r0))
-            state.H = [torch.where(valid_l[:, None], hn.detach(), ho)
-                       for hn, ho in zip(H_new, H)]
+            for h, hn, ho in zip(state.H, H_new, H):
+                h.copy_(torch.where(valid_l[:, None], hn.detach(), ho))
         return cost * Mf
+
+    runner = None if _eager or not mesh.capturable else _StepGraph(step_fn, layout.width)
 
     def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1, logp0,
                  neg=None, sr_seeds=None):
@@ -276,24 +297,28 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh):
         if n_sample > 0 and neg is None:
             neg = draw_negatives(state.gen, samp1, chunk, n_sample, n_items,
                                  cfg.sample_alpha, cfg.sampler)
-        in_d, out_d, valid_d, reset_d = (
-            torch.from_numpy(np.ascontiguousarray(a[:, lo:lo + bl])).to(dev)
-            for a in (in_c, out_c, valid_c, reset_c))
-        counts = valid_c.sum(axis=1)  # global: every rank gates alike
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        seeds = None
+        if layout.seed_names:
+            seeds = sr_seeds if sr_seeds is not None else {
+                k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
+                              SR_TABLE_SALT[k]) for k in layout.seed_names}
+        stack = layout.pack(*(a[:, lo:lo + bl] for a in (in_c, out_c, valid_c, reset_c)),
+                            neg, seeds, dev)
+        # the gate reads the global schedule: every rank replays or skips a
+        # step together, so no rank leaves a collective unmatched
+        counts = valid_c.sum(axis=1)
+        if runner is not None:
+            runner.begin(state, logp0, dev)
+        else:
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for t in range(chunk):
             if counts[t] > 0:
-                neg_t = neg[t].to(device=dev, dtype=torch.int32) if n_sample > 0 else None
-                seeds = None
-                if opt.state_sr:
-                    seeds = ({k: int(v[t]) for k, v in sr_seeds.items()}
-                             if sr_seeds is not None else
-                             {k: step_seed(cfg.seed, state.step, SR_TABLE_SALT[k])
-                              for k in sparse_names})
-                loss_sum = loss_sum + step_fn(
-                    state, in_d[t].to(torch.int32), out_d[t].to(torch.int32), valid_d[t],
-                    reset_d[t], neg_t, float(counts[t]), logp0, seeds)
+                if runner is not None:
+                    runner.step(state, stack[t], logp0)
+                else:
+                    loss_sum = loss_sum + step_fn(state, stack[t], logp0)
             state.step += 1
-        return loss_sum, int(counts.sum())
+        return (loss_sum if runner is None else runner.end()), int(counts.sum())
 
+    chunk_fn.runner = runner
     return chunk_fn

@@ -29,6 +29,13 @@ a ``backend`` named by the caller is taken as it is, and nothing falls back
 to another backend or device. Every group has a timeout
 (:data:`DEFAULT_TIMEOUT`), so a missing or stalled peer fails a collective
 instead of hanging it.
+
+**Captured steps.** On an NCCL mesh (:attr:`Mesh.capturable`) the training
+step, the evaluation step and the top-k serving call are captured as CUDA
+graphs, collectives included, as on one device (``utils/cuda_graph.py``).
+A gloo mesh runs them eagerly, on the CPU and on a card alike: gloo's
+collectives run on host threads, which a CUDA graph cannot record. That is
+by design, not a fallback: nothing else decides between the two.
 """
 
 from __future__ import annotations
@@ -42,6 +49,9 @@ import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=60)
 AXES = ("data", "model")
+# The single-buffer all-gather; newer PyTorch names it all_gather_single and
+# deprecates all_gather_into_tensor, older ones have only the latter.
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 def init_distributed(coordinator_address=None, num_processes=None, process_id=None,
@@ -122,6 +132,12 @@ class Mesh:
         for group in self._groups.values():
             dist.barrier(group=group, **ids)
 
+    @property
+    def capturable(self) -> bool:
+        """Whether the mesh's steps can be captured as CUDA graphs: NCCL on a
+        CUDA device (module doc)."""
+        return self.backend == "nccl" and self.device.type == "cuda"
+
     def index(self, axis: str) -> int:
         return self.di if axis == "data" else self.mi
 
@@ -136,11 +152,12 @@ class Mesh:
 
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The equal-shaped blocks ``t`` of the ranks along ``axis``,
-        concatenated along dim 0 in axis order."""
+        concatenated along dim 0 in axis order: one collective into one
+        output buffer, which both backends take and a graph can capture."""
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in self._ranks[axis]]
-        dist.all_gather(parts, t, group=self._groups[axis])
-        return torch.cat(parts)
+        out = t.new_empty((len(self._ranks[axis]) * t.shape[0],) + tuple(t.shape[1:]))
+        _all_gather_single(out, t, group=self._groups[axis])
+        return out
 
     def fetch_to_host(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Like :meth:`all_gather`, as a CPU tensor on every rank; the

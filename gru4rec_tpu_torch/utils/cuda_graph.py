@@ -17,7 +17,10 @@ keeps the eager code as the graph's plain version. They share:
   it was captured on.
 
 A captured call must not wait on the host: no boolean-mask index,
-``nonzero`` or ``.item()`` inside it.
+``nonzero`` or ``.item()`` inside it, and no ``dist.barrier``. A mesh step
+on NCCL captures its collectives too (``parallel/mesh.py``): their
+communicators exist before the capture, since ``Mesh`` sets up each group
+with a barrier and the eager warm-up steps run every collective once.
 """
 
 from __future__ import annotations

@@ -11,11 +11,17 @@ virtual CPU devices of ``tests/conftest.py``. Cases:
 * ``factor_mesh``, the rank layout and groups of ``make_mesh``, and which
   leaves are row-sharded (``param_specs`` / ``state_specs`` against JAX's
   ``param_pspecs`` / ``state_pspecs``);
-* one distributed chunk against JAX's ``make_dist_chunk_fn`` on
+* one distributed chunk (the packed step stack, run by the eager loop: a
+  gloo mesh is never captured) against JAX's ``make_dist_chunk_fn`` on
   ``make_mesh(nd, nm)`` from the same state, with JAX's negatives and
   stochastic-rounding seeds, in all three input modes, adagrad and adam,
   float32 and ``bfloat16_sr`` state: loss rtol 1e-4, parameters rtol 2e-4 /
   atol 1e-6, bf16 state atol 1e-3;
+* on every shape: stochastically rounded row-shard updates keyed by 0-d
+  int32 seed tensors equal the same seeds as ints and the whole table's
+  update bit for bit; ``Mesh.all_gather``'s single-buffer collective equals
+  the list form of ``dist.all_gather``; a gloo mesh is not capturable and
+  its chunk function has no runner;
 * a chunk in which one data rank's lanes are all padding, and a step that is
   padding everywhere, against the single-device chunk;
 * ``fit(mesh=)`` with in-fit validation and ``keep_best`` against JAX's
@@ -76,11 +82,15 @@ WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
 SPAWN_TIMEOUT = 240  # seconds for every spawn together
 
 # shape -> (how the ranks initialize, worker tasks)
+# the mesh primitives every shape checks (collective and seed forms, gloo
+# kept eager)
+FORMS = ["seed_forms", "gather_forms", "eager_by_design"]
 SHAPES = {
-    "2x2": ("env", ["chunk", "padding", "fit", "checkpoint", "retrain", "evaluate", "topk"]),
-    "1x2": ("tcp", ["chunk", "evaluate", "topk"]),
-    "2x1": ("env", ["chunk", "padding", "evaluate", "topk"]),
-    "1x1": ("none", ["bit_equal"]),
+    "2x2": ("env", ["chunk", "padding", "fit", "checkpoint", "retrain", "evaluate", "topk"]
+            + FORMS),
+    "1x2": ("tcp", ["chunk", "evaluate", "topk"] + FORMS),
+    "2x1": ("env", ["chunk", "padding", "evaluate", "topk"] + FORMS),
+    "1x1": ("none", ["bit_equal", "chunk"] + FORMS),
 }
 CHUNK_CASES = {
     "constrained-adagrad": dict(constrained_embedding=True),
@@ -93,7 +103,9 @@ CHUNK_CASES = {
 }
 CHUNK_SHAPES = {"2x2": list(CHUNK_CASES),
                 "1x2": ["constrained-adagrad", "onehot-adagrad", "embedding-adam-sr"],
-                "2x1": ["constrained-adagrad", "onehot-adagrad", "embedding-adam-sr"]}
+                "2x1": ["constrained-adagrad", "onehot-adagrad", "constrained-adagrad-sr",
+                        "embedding-adam-sr"],
+                "1x1": list(CHUNK_CASES)}
 CHUNK_N_ITEMS = 90
 CUTOFFS = [1, 5, 20]
 TIE_MODES = ("standard", "conservative", "median")
@@ -464,6 +476,33 @@ def test_dist_chunk_matches_jax(runs, shape, case):
         for i, h in enumerate(uj.H):
             np.testing.assert_allclose(o[f"chunk/{case}/H/{i}"], np.asarray(h),
                                        rtol=2e-4, atol=1e-6)
+
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_tensor_seeds_equal_int_seeds_on_row_shards(runs, shape):
+    """Stochastically rounded updates of a row-shard keyed by 0-d int32 seed
+    tensors (the packed step stack's views) equal the same seeds as ints and
+    the whole table's update, bit for bit."""
+    for o in runs.out[shape]:
+        for adapt in ("adagrad", "adam"):
+            tensor_vs_int, tensor_vs_whole = o[f"seed_forms/{adapt}"]
+            assert tensor_vs_int, (adapt, int(o["rank"]))
+            assert tensor_vs_whole, (adapt, int(o["rank"]))
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_all_gather_single_buffer_equals_list_form(runs, shape):
+    for o in runs.out[shape]:
+        assert o["gather_forms"].all(), o["gather_forms"]
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_gloo_mesh_runs_eagerly(runs, shape):
+    """A gloo mesh is not capturable: its chunk function has no runner."""
+    for o in runs.out[shape]:
+        capturable, runner_none, eager_runner_none = o["eager_by_design"]
+        assert not capturable and runner_none and eager_runner_none
 
 
 @pytest.mark.parametrize("shape", ["2x2", "2x1"])

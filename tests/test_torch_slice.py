@@ -305,6 +305,10 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     pkg = os.path.join(REPO, "gru4rec_tpu_torch")
     paths = [os.path.join(REPO, "chip_smoke.py")]
+    # the port's scripts too, but for the one that compares the packages
+    scripts = os.path.join(REPO, "scripts")
+    paths += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+              if f.endswith("_torch.py") and f != "s1_seed_sweep_torch.py"]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15

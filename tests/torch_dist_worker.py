@@ -2,10 +2,12 @@
 
 Each worker is one rank of a ``gloo`` mesh on the CPU. It drives the
 port's mesh entry points (``make_mesh``, the distributed training chunk,
-``fit(mesh=)``, ``evaluate(mesh=)``, ``predict_topk(mesh=)``, checkpoints)
-on the inputs the test module wrote, and writes what it read to
-``<out_dir>/rank<r>.npz``; the test module holds those against the JAX
-package and the port's single-device path. Imports torch and the port only.
+``fit(mesh=)``, ``evaluate(mesh=)``, ``predict_topk(mesh=)``, checkpoints,
+the collectives and stochastic-rounding seeds of the packed step stack) on
+the inputs the test module wrote, and writes what it read to
+``<out_dir>/rank<r>.npz``; ``test_torch_parallel.py`` holds those
+against the JAX package and the port's single-device path. Imports torch
+and the port only.
 
 Not a pytest module: run as ``python torch_dist_worker.py <rank> <n_data>
 <n_model> <port> <init> <inputs.npz> <out_dir>``, where ``init`` is ``env``
@@ -327,6 +329,79 @@ def task_bit_equal(mesh, inputs, out, out_dir):
     ia, sa_ = a.predict_topk(sess, inp, k=5, batch=8)
     ib, sb_ = b.predict_topk(sess, inp, k=5, batch=8, mesh=mesh)
     out["bit/topk"] = np.array([(ia == ib).all(), np.array_equal(sa_, sb_)])
+
+
+def task_seed_forms(mesh, inputs, out, out_dir):
+    """Stochastically rounded updates of this rank's row-shard keyed by 0-d
+    int32 seed tensors (the views of the packed stack that a step hands the
+    update) against the same seeds as ints, and against the whole table's
+    update (seed row offset 0) on the shard's rows; adagrad and adam."""
+    import torch
+
+    from gru4rec_tpu_torch.parallel.mesh import local_block
+    from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
+
+    nm, mi = mesh.shape["model"], mesh.mi
+    rng = np.random.RandomState(2)
+    n, d, K = 64, 16, 40
+    idx = torch.from_numpy(rng.randint(0, n, K).astype(np.int32))
+    g = torch.from_numpy(rng.randn(K, d).astype(np.float32))
+    base = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    rows = n // nm
+    r0 = mi * rows
+    idx_l = torch.where((idx >= r0) & (idx < r0 + rows), idx - r0, SENTINEL)
+    for adapt in ("adagrad", "adam"):
+        opt = make_optimizer(_cfg(dict(adapt=adapt, momentum=0.3,
+                                       opt_state_dtype="bfloat16_sr")))
+        runs = {}
+        for form in ("tensor", "int", "whole"):
+            table = base.clone() if form == "whole" else local_block(base, nm, mi, "cpu")
+            st = opt.init_state(table, sparse=True)
+            for seed in (-123456789, 0x7FFFFFF0, 5):
+                if form == "tensor":
+                    seed = torch.tensor(seed, dtype=torch.int32)
+                opt.apply_sparse(table, idx if form == "whole" else idx_l, g, st,
+                                 sr_seed=(seed, 0 if form == "whole" else r0))
+            got = [table] + list(st.values())
+            runs[form] = [t[r0:r0 + rows] for t in got] if form == "whole" else got
+        out[f"seed_forms/{adapt}"] = np.array([
+            all(torch.equal(a, b) for a, b in zip(runs["tensor"], runs[other]))
+            for other in ("int", "whole")])
+
+
+def task_gather_forms(mesh, inputs, out, out_dir):
+    """``Mesh.all_gather`` (one collective into one buffer) against the
+    list form of ``dist.all_gather`` and a concatenation, over both axes,
+    for int32, float32 and bfloat16 blocks and a transposed input."""
+    import torch
+    import torch.distributed as dist
+
+    same = []
+    for axis in ("data", "model"):
+        for dtype, shape, transpose in ((torch.int32, (3, 4), False),
+                                        (torch.int32, (4, 3), True),
+                                        (torch.float32, (5,), False),
+                                        (torch.bfloat16, (2, 3, 2), False)):
+            t = (torch.arange(int(np.prod(shape))) + 100 * mesh.rank).reshape(shape).to(dtype)
+            if transpose:
+                t = t.t()
+            parts = [torch.empty_like(t.contiguous()) for _ in mesh.ranks(axis)]
+            dist.all_gather(parts, t.contiguous(), group=mesh._groups[axis])
+            got = mesh.all_gather(t, axis)
+            same.append(got.dtype == dtype and torch.equal(got, torch.cat(parts)))
+    out["gather_forms"] = np.array(same)
+
+
+def task_eager_by_design(mesh, inputs, out, out_dir):
+    """A gloo mesh is not capturable: its chunk function has no runner."""
+    from gru4rec_tpu_torch.parallel.dist_step import make_dist_chunk_fn
+
+    case = json.loads(str(inputs[f"chunk_cases/{mesh.shape['data']}x{mesh.shape['model']}"]))[0]
+    cfg = _cfg(json.loads(str(inputs[f"chunk/{case}/cfg"])))
+    n_items = int(inputs[f"chunk/{case}/n_items"])
+    out["eager_by_design"] = np.array([
+        mesh.capturable, make_dist_chunk_fn(cfg, n_items, mesh).runner is None,
+        make_dist_chunk_fn(cfg, n_items, mesh, _eager=True).runner is None])
 
 
 if __name__ == "__main__":
