@@ -186,7 +186,18 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    with the graph pool and the capture stream's workspace read from one
    probe on the card) and one ``try`` at 1,000,000 items with adam and
    ``bfloat16_sr`` (``ok``, K3 once per step, its memory reserved);
-26. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+26. bench   — ``python -m gru4rec_tpu_torch.bench`` in full as a fresh
+   subprocess (four flagship epochs at the bench's 750,000 events, then the
+   epoch-1 children: two warm, one cold that builds the kernel and the
+   schedule builder into an empty directory): exit 0, the result line's
+   keys those of ``bench.py``'s line in its order (read from its source),
+   every epoch-1 field a number, ``bench_hw`` the card's name, K1 once per
+   step of the four epochs; it prints the line and the card's
+   ``nvidia-smi`` line as the harness gave them;
+27. bench_scaling — ``python -m gru4rec_tpu_torch.bench_scaling``: one row
+   per data-parallel width the cards allow (one card: devices 1, batch
+   80), the keys of ``bench_scaling.py``'s row, K1 once per step;
+28. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
    one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2).
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -3002,6 +3013,101 @@ def phase_hbm_budget(smi_line):
         raise AssertionError(f"hbm_budget try: {probe}")
 
 
+# ---------------------------------------------------------------------- #
+# bench, bench_scaling: the port's harnesses, each as a fresh subprocess
+BENCH_TIMEOUT = 900    # seconds for the bench, its three epoch-1 children included
+SCALING_TIMEOUT = 600
+
+
+def _dumped_keys(name):
+    """The keys, in order, of the dict that ``main`` of the JAX package's
+    harness ``name`` (``bench.py``, ``bench_scaling.py``) passes to
+    ``json.dumps``, read from its source (nothing of it is imported)."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    (main,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    (d,) = [n.args[0] for n in ast.walk(main)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr == "dumps" and n.args and isinstance(n.args[0], ast.Dict)]
+    return [k.value for k in d.keys]
+
+
+def _harness(module, timeout):
+    """``python -m <module>`` from the checkout's root: (stdout lines, the
+    ``{"fit": ...}`` records of its stderr, stderr, seconds); a non-zero
+    exit fails the phase."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", module], capture_output=True, text=True,
+                         timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise AssertionError(f"{module} exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    fits = [json.loads(ln)["fit"] for ln in res.stderr.splitlines() if ln.startswith('{"fit"')]
+    return res.stdout.strip().splitlines(), fits, res.stderr, time.time() - t0
+
+
+def _fit_summary(phase, fit):
+    """A harness's ``fit``: finite losses and K1 once per step of every
+    epoch, no other mode."""
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    steps = sum(e["steps"] for e in fit["epochs"])
+    want = {m: steps if m == "K1" else 0 for m in sparse_update.MODES}
+    if fit["launches"] != want or not all(math.isfinite(e["loss"]) for e in fit["epochs"]):
+        raise AssertionError(f"{phase}: launches {fit['launches']} over {steps} steps, "
+                             f"expected {want}; epochs {fit['epochs']}")
+    return {"steps": steps, "epoch_events": [e["events"] for e in fit["epochs"]],
+            "epoch_seconds": [e["seconds"] for e in fit["epochs"]],
+            "launches": fit["launches"]}
+
+
+def phase_bench(smi_line):
+    """``python -m gru4rec_tpu_torch.bench`` in full (module doc)."""
+    import torch
+
+    lines, fits, stderr, seconds = _harness("gru4rec_tpu_torch.bench", BENCH_TIMEOUT)
+    line = json.loads(lines[-1])
+    smi = [ln[len("nvidia-smi: "):] for ln in stderr.splitlines()
+           if ln.startswith("nvidia-smi: ")]
+    keys = _dumped_keys("bench.py")
+    epoch1 = [line.get("epoch1_warm_s"), line.get("epoch1_cold_s"),
+              *line.get("epoch1_warm_runs_s", [])]
+    if list(line) != keys or len(fits) != 1 or len(smi) != 1 or \
+            len(line["epoch1_warm_runs_s"]) != 2 or \
+            not all(isinstance(v, (int, float)) and v > 0 for v in epoch1) or \
+            line["bench_hw"] != torch.cuda.get_device_name(0) or \
+            not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"bench: line {line}, keys {keys}, nvidia-smi {smi}, "
+                             f"{len(fits)} fit records\n{stderr[-3000:]}")
+    emit({"phase": "bench", "line": line, "nvidia_smi": smi[0],
+          **_fit_summary("bench", fits[0]), "seconds": seconds, "card": smi_line})
+
+
+def phase_bench_scaling(smi_line):
+    """``python -m gru4rec_tpu_torch.bench_scaling`` (module doc)."""
+    import torch
+
+    from gru4rec_tpu_torch.bench_scaling import widths
+
+    lines, fits, stderr, seconds = _harness("gru4rec_tpu_torch.bench_scaling",
+                                            SCALING_TIMEOUT)
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    keys = _dumped_keys("bench_scaling.py")
+    want = [(d, 80 * d) for d in widths(torch.cuda.device_count())]
+    if [(r.get("devices"), r.get("batch")) for r in rows] != want or \
+            any(list(r) != keys or not r["value"] > 0 for r in rows) or \
+            [f["devices"] for f in fits] != [d for d, _ in want]:
+        raise AssertionError(f"bench_scaling: rows {rows}, expected {want}, keys {keys}\n"
+                             f"{stderr[-3000:]}")
+    for r, fit in zip(rows, fits):
+        emit({"phase": "bench_scaling", "row": r,
+              **_fit_summary(f"bench_scaling width {r['devices']}", fit),
+              "seconds": seconds, "card": smi_line})
+
+
 # the kernels line: kernel_timing key -> (mode, line of the TPU kernel in
 # gru4rec_tpu/ops/kernels/sparse_update.py, phase whose launches count)
 KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
@@ -3072,6 +3178,8 @@ def main() -> int:
     paths["published_rees46"] = phase_published(smi_line)["rees46"]
     phase_examples(smi_line)
     phase_hbm_budget(smi_line)
+    phase_bench(smi_line)
+    phase_bench_scaling(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
     # e.g. torch.optim.Adagrad with sparse gradients divides by sqrt(acc) + eps
     kernels = [{

@@ -293,6 +293,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 def _imported_modules(path):
+    """Every module ``path`` imports, by statement or by a call of
+    ``__import__`` / ``importlib.import_module`` on a constant name (as the
+    JAX package's ``bench.py`` reads its device kind)."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     for node in ast.walk(tree):
@@ -300,6 +303,11 @@ def _imported_modules(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                (getattr(node.func, "id", None) == "__import__"
+                 or getattr(node.func, "attr", None) == "import_module"):
+            yield node.args[0].value
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -312,6 +320,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 15
+    # the benchmark harnesses, which the JAX package keeps outside it
+    for name in ("bench.py", "bench_scaling.py"):
+        assert os.path.join(pkg, name) in paths, name
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
