@@ -186,7 +186,37 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    with the graph pool and the capture stream's workspace read from one
    probe on the card) and one ``try`` at 1,000,000 items with adam and
    ``bfloat16_sr`` (``ok``, K3 once per step, its memory reserved);
-26. bench   — ``python -m gru4rec_tpu_torch.bench`` in full as a fresh
+26. fuzz    — the JAX package's config-surface fuzz
+   (``tests/test_config_fuzz.py``: its generator, copied here as
+   ``fuzz_draw_config`` and ``fuzz_sessions``, seed ``1000 + draw``) on the
+   card: draws 0-23 at their drawn widths, then draws 0-7 with every layer
+   (and the embedding, where drawn) 128 wide, each as drawn (dropout,
+   bfloat16 products, its state dtype, 2 epochs of 120 sessions). Per run:
+   ``fit`` through the captured step and through the eager loop, every
+   epoch loss and every parameter, state and lane leaf bit-equal, the
+   replays the steps after the warm-up, and the kernel launches its
+   config implies once per step and table (K2/K3 on ``bfloat16_sr``
+   adagrad/adam state, else K1 at a width that is a multiple of 128 and
+   K4 at any other, none under plain SGD); ``evaluate`` captured against
+   eager, bit-equal; ``savemodel`` -> ``loadmodel`` -> ``predict_topk``
+   (k = 5) with the same ids and scores; the chunk function step by step
+   from the same state on the card (captured) and the CPU, with float32
+   products and no dropout: loss within rtol 1e-4, parameters within atol
+   1e-5, float32 state within atol 1e-5 + rtol 1e-6, bfloat16 state within
+   one bf16 ulp; each entry of an adam parameter and its momentum also
+   within lr times the difference of the step directions the two devices'
+   float32 moments give (adam's slope lr / eps at a zero gradient), and
+   every adam entry past 1e-5 read back. One line per run, then
+   ``fuzz_summary`` (runs, steps, launches by mode, the largest
+   card-against-CPU differences, the adam entries past 1e-5);
+27. paropt_sweep — ``scripts/run_paropt_sweep_torch.py 3``: three paropt
+   trials at the sweep's GRU-224 / batch-80 / 2048-negative shape on
+   420,000 synthetic training events, from a copy of the package with an
+   empty build directory: exit 0, a metric per trial, ``cache_shared``
+   (trial 1's first epoch, which builds the kernel and the schedule
+   builder, over 3x the warm trials' median), and paropt's final run of
+   the best parameters at the best trial's Recall@20;
+28. bench   — ``python -m gru4rec_tpu_torch.bench`` in full as a fresh
    subprocess (four flagship epochs at the bench's 750,000 events, then the
    epoch-1 children: two warm, one cold that builds the kernel and the
    schedule builder into an empty directory): exit 0, the result line's
@@ -194,11 +224,12 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    every epoch-1 field a number, ``bench_hw`` the card's name, K1 once per
    step of the four epochs; it prints the line and the card's
    ``nvidia-smi`` line as the harness gave them;
-27. bench_scaling — ``python -m gru4rec_tpu_torch.bench_scaling``: one row
+29. bench_scaling — ``python -m gru4rec_tpu_torch.bench_scaling``: one row
    per data-parallel width the cards allow (one card: devices 1, batch
    80), the keys of ``bench_scaling.py``'s row, K1 once per step;
-28. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
-   one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2).
+30. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+   one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2), with the ``fuzz``
+   phase's launches of each mode beside the main path's.
 
 Every phase prints one JSON line; a failed check raises, and the script
 then exits non-zero. The last line is
@@ -2576,25 +2607,48 @@ def phase_mesh_1x1(flagship, train_rec, sr_rec, smi_line):
                              f"was not captured: {out}")
 
 
-def _flagship_schedule(cfg):
-    """What ``fit`` builds from the train split (the item map, the
-    schedule, the alias table), and the test split."""
-    from gru4rec_tpu_torch.data.loader import apply_itemidmap, build_itemidmap
-    from gru4rec_tpu_torch.data.scheduler import build_schedule, session_order
-    from gru4rec_tpu_torch.data.tools import compute_offset, sort_if_needed
-    from gru4rec_tpu_torch.ops.sampling import build_alias_table
+def _fit_built(cfg, train):
+    """What ``fit`` builds for training from ``train``, read from a ``fit``
+    on the CPU whose chunk function trains nothing: the model (item map,
+    catalog) and ``{"schedules": [one per epoch built], "samp1": ...,
+    "logp0": ...}``, the sampler and logq tables as CPU tensors."""
+    import contextlib
+    import io
 
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.models import gru4rec
+
+    built = {"schedules": []}
+    build, make = gru4rec.build_schedule, gru4rec.make_chunk_fn
+
+    def recorded(*a, **k):
+        built["schedules"].append(build(*a, **k))
+        return built["schedules"][-1]
+
+    def stub(cfg, n_items):
+        def chunk_fn(state, in_c, out_c, valid_c, reset_c, samp1, logp0, **_):
+            built["samp1"], built["logp0"] = samp1, logp0
+            return torch.zeros(()), int(valid_c.sum())
+        return chunk_fn
+
+    gru4rec.build_schedule, gru4rec.make_chunk_fn = recorded, stub
+    try:
+        model = GRU4Rec(cfg, device="cpu")
+        with contextlib.redirect_stdout(io.StringIO()):  # fit's epoch lines
+            model.fit(train)
+    finally:
+        gru4rec.build_schedule, gru4rec.make_chunk_fn = build, make
+    return model, built
+
+
+def _flagship_schedule(cfg):
+    """What ``fit`` builds from the train split (the item map, the first
+    epoch's schedule, the sampler table), and the test split."""
     train, test = synth_split()
-    itemidmap = build_itemidmap(train, "ItemId")
-    data = apply_itemidmap(train, itemidmap, "ItemId")
-    sort_if_needed(data, ["SessionId", "Time"])
-    offsets = compute_offset(data, "SessionId")
-    order = session_order(data, "SessionId", "Time", cfg.time_sort, len(offsets) - 1)
-    sched = build_schedule(data["ItemIdx"].values.astype(np.int32), offsets, order,
-                           cfg.batch_size)
-    pop = (data.groupby("ItemId").size()
-           .reindex(itemidmap.index.values, fill_value=0).values)
-    return itemidmap, sched, build_alias_table(pop, cfg.sample_alpha), test
+    model, built = _fit_built(cfg, train)
+    return model.itemidmap, built["schedules"][0], built["samp1"].numpy(), test
 
 
 def _flagship_steps(cfg, mesh=None):
@@ -3014,6 +3068,487 @@ def phase_hbm_budget(smi_line):
 
 
 # ---------------------------------------------------------------------- #
+# fuzz: the JAX package's config-surface fuzz (tests/test_config_fuzz.py)
+# through the port on the card
+FUZZ_DRAWS = 24          # draws 0-23 at their drawn widths
+FUZZ_WIDE_DRAWS = 8      # draws 0-7 again at width 128 (K1 across the surface)
+FUZZ_WIDE = 128
+ADAM_READINGS = 20       # adam entries past 1e-5 read back per run, at most
+FUZZ_FINAL_ACT = {
+    "cross-entropy": "softmax",
+    "xe_logit": "softmax_logit",
+    "bpr": "elu-0.5",
+    "bpr-max": "elu-1",
+    "top1": "tanh",
+    "top1-max": "leaky-0.1",
+}
+
+
+def fuzz_draw_config(rng):
+    """A copy of ``draw_config`` of ``tests/test_config_fuzz.py`` (this
+    script imports nothing of the JAX package; a CPU test holds the two
+    equal): one random valid config of the combination surface."""
+    loss = rng.choice(list(FUZZ_FINAL_ACT))
+    n_sample = int(rng.choice([0, 8, 24]))
+    if loss in ("bpr", "bpr-max", "top1", "top1-max") and n_sample == 0:
+        n_sample = 8
+    mode = rng.choice(["onehot", "embedding", "constrained"])
+    kw = dict(
+        loss=str(loss), final_act=FUZZ_FINAL_ACT[loss],
+        hidden_act=str(rng.choice(["tanh", "relu"])),
+        layers=[int(rng.choice([8, 12]))] * int(rng.choice([1, 2])),
+        batch_size=8, n_sample=n_sample,
+        sample_alpha=float(rng.choice([0.0, 0.5, 0.75])),
+        sampler=str(rng.choice(["alias", "searchsorted"])),
+        learning_rate=0.06, n_epochs=2, chunk_size=int(rng.choice([8, 16])),
+        item_pad_multiple=32,
+        adapt=rng.choice([None, "adagrad", "rmsprop", "adadelta", "adam"]),
+        momentum=float(rng.choice([0.0, 0.3])),
+        lmbd=float(rng.choice([0.0, 1e-4])),
+        grad_cap=float(rng.choice([0.0, 5.0])),
+        logq=float(rng.choice([0.0, 1.0])),
+        dropout_p_hidden=float(rng.choice([0.0, 0.2])),
+        dropout_p_embed=float(rng.choice([0.0, 0.1])),
+        time_sort=bool(rng.choice([True, False])),
+        train_random_order=bool(rng.choice([True, False])),
+        opt_state_dtype=str(rng.choice(["float32", "bfloat16", "bfloat16_sr"])),
+        dedup_impl=str(rng.choice(["sort", "matmul"])),
+        seed=int(rng.randint(1000)),
+    )
+    if loss in ("cross-entropy", "xe_logit"):
+        kw["smoothing"] = float(rng.choice([0.0, 0.2]))
+    if mode == "embedding":
+        kw["embedding"] = int(rng.choice([7, 9]))
+    elif mode == "constrained":
+        kw["constrained_embedding"] = True
+    if kw["adapt"] == "adadelta":
+        kw["learning_rate"] = 1.0
+    return kw
+
+
+def fuzz_sessions(n, seed, n_items=40):
+    """A copy of ``sessions`` of ``tests/test_config_fuzz.py``: the chain
+    next = (11*i+5) % n_items, sessions of 3-6 events."""
+    import pandas as pd
+
+    r = np.random.RandomState(seed)
+    rows, t = [], 0
+    for s in range(n):
+        i = r.randint(n_items)
+        for _ in range(r.randint(3, 7)):
+            rows.append((s, f"it{i}", t))
+            t += 1
+            i = (11 * i + 5) % n_items
+    return pd.DataFrame(rows, columns=["SessionId", "ItemId", "Time"])
+
+
+def fuzz_runs():
+    """(draw, width, config kwargs) of the phase's 32 runs: draws 0-23 as
+    drawn, then draws 0-7 with every layer, and the embedding where the
+    draw has one, ``FUZZ_WIDE`` wide (the rest of the draw kept)."""
+    runs = []
+    for draw in range(FUZZ_DRAWS):
+        runs.append((draw, "drawn", fuzz_draw_config(np.random.RandomState(1000 + draw))))
+    for draw in range(FUZZ_WIDE_DRAWS):
+        kw = dict(runs[draw][2])
+        kw["layers"] = [FUZZ_WIDE] * len(kw["layers"])
+        if "embedding" in kw:
+            kw["embedding"] = FUZZ_WIDE
+        runs.append((draw, FUZZ_WIDE, kw))
+    return runs
+
+
+def fuzz_tables(model):
+    """{name: width} of a fitted model's row-sparse item tables."""
+    params = model.params
+    tables = {"Wy": params["Wy"].shape[1]}
+    if "E" in params:
+        tables["E"] = params["E"].shape[1]
+    elif not model.config.constrained_embedding:
+        tables["Wx0"] = params["Wx"][0].shape[1]
+    return tables
+
+
+def fuzz_launches_per_step(cfg, tables):
+    """The kernel launches per training step that the config implies, by
+    mode: one per row-sparse item table (``tables``: name -> width), K2
+    (K3 under adam) where the table's state is stored with stochastic
+    rounding, else K1 at a width that is a multiple of 128 and K4 at any
+    other; plain SGD updates its rows with torch ops, no kernel."""
+    per = {}
+    if cfg.adapt is None:
+        return per
+    sr = cfg.opt_state_dtype == "bfloat16_sr" and cfg.adapt in ("adagrad", "adam")
+    for width in tables.values():
+        mode = ("K3" if cfg.adapt == "adam" else "K2") if sr else \
+            ("K1" if width % 128 == 0 else "K4")
+        per[mode] = per.get(mode, 0) + 1
+    return per
+
+
+def _fuzz_fit(cfg, train, eager):
+    """``fit`` on the card through the captured step, or with ``eager``
+    through the eager loop: the model, its chunk function and the launches
+    by mode."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    model = GRU4Rec(cfg, device=DEVICE)
+    sparse_update.reset_launches()
+    with _chunk_fns(eager=eager) as made:
+        model.fit(train)
+    torch.cuda.synchronize()
+    (fn,) = made
+    return model, fn, dict(sparse_update.launches_by_mode)
+
+
+def _close(got, want, what, extra=0.0):
+    """The largest difference of two leaves, and whether it is within the
+    card-against-CPU tolerance: parameters atol 1e-5; float32 optimizer
+    state atol 1e-5 + rtol 1e-6 (accumulators grow past 10); bfloat16
+    state one bf16 ulp; each plus ``extra`` (a number, or a tensor of the
+    leaf's shape)."""
+    import torch
+
+    g, w = got.detach().double().cpu(), want.detach().double()
+    diff = (g - w).abs()
+    if got.dtype == want.dtype == torch.bfloat16:
+        tol = 2.0**-7 * torch.maximum(g.abs(), w.abs()) + 1e-8 + extra
+    elif what == "params":
+        tol = 1e-5 + extra
+    else:
+        tol = 1e-5 + 1e-6 * w.abs() + extra
+    return float(diff.max()) if diff.numel() else 0.0, bool((diff <= tol).all())
+
+
+def _adam_moments(cfg, state):
+    """{parameter leaf: (m, v, t, velocity leaf, exact)} of adam's state,
+    in float64 on the CPU: the first and second moments, shaped as the
+    parameter, the step count (a number, or a column per row of a
+    row-sparse table's merged ``[acc | meang | count]``), the key of the
+    parameter's momentum state (None without momentum), and whether the
+    moments are the float32 ones the step used (not so for a table stored
+    in bfloat16 with stochastic rounding)."""
+    import torch
+
+    from gru4rec_tpu_torch.models import gru
+    from gru4rec_tpu_torch.ops import sr
+    from gru4rec_tpu_torch.train import step as tstep
+
+    mode = gru.input_mode(cfg)
+    first = 1 if mode == "onehot" else 0  # a one-hot Wx[0] is row-sparse
+    out = {}
+    for k, sts in state.opt_state["dense"].items():
+        for i, st in enumerate(sts):
+            j = i + first if k == "Wx" else i
+            out[f"/{k}/{j}"] = (st["meang"].double().cpu(), st["acc"].double().cpu(),
+                                float(st["count"].reshape(-1)[0]),
+                                f"/dense/{k}/{i}/velocity" if "velocity" in st else None,
+                                True)
+    for name in tstep.sparse_table_names(mode):
+        st = state.opt_state["sparse"][name]
+        d = (state.params["Wx"][0] if name == "Wx0" else state.params[name]).shape[1]
+        exact = st["acc2"].dtype == torch.float32
+        acc2 = st["acc2"].double().cpu()
+        cnt = acc2[:, 2 * d:2 * d + 1] if exact else sr.limbs_decode(
+            *(acc2[:, 2 * d + i:2 * d + i + 1] for i in range(3)))
+        out["/Wx/0" if name == "Wx0" else f"/{name}"] = (
+            acc2[:, d:2 * d], acc2[:, :d], cnt,
+            f"/sparse/{name}/velocity" if "velocity" in st else None, exact)
+    return out
+
+
+def _adam_direction(opt, m, v, t):
+    """Adam's step direction m^ / (sqrt(v^) + eps) from its moments, in
+    float64 (``opt``: the port's ``Optimizer``; ``optimizers._adapt_dense``'s
+    formula; 0 where the count is 0, a row never updated)."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels.sparse_update import EPSILON, log_decay
+
+    t = torch.as_tensor(t, dtype=torch.float64)
+    c1, c2 = -torch.expm1(t * log_decay(opt.v1)), -torch.expm1(t * log_decay(opt.v2))
+    return torch.where(t > 0, (m / c1) / (torch.sqrt(v / c2) + EPSILON), 0.0)
+
+
+def _fuzz_card_vs_cpu(kw, train):
+    """The chunk function step by step on the card (its captured step) and
+    on the CPU (the eager loop), each step from the CPU's state: the
+    draw's config with float32 products and no dropout (the devices draw
+    different masks), the first epoch's schedule as fit builds it, the
+    negatives fit would draw injected; per-step loss within rtol 1e-4,
+    every leaf within :func:`_close`'s tolerance; a trajectory that
+    diverges ends the comparison where both devices' losses stop being
+    finite. Returns (steps compared, largest loss rel. error, largest leaf
+    difference, (adam entries past 1e-5, the first ADAM_READINGS read
+    back))."""
+    from gru4rec_tpu_torch import GRU4RecConfig
+    from gru4rec_tpu_torch.models.gru4rec import resolve_device
+    from gru4rec_tpu_torch.ops.sampling import draw_negatives
+    from gru4rec_tpu_torch.train import step as tstep
+    from gru4rec_tpu_torch.train.optimizers import make_optimizer
+
+    cfg = GRU4RecConfig(**dict(kw, dropout_p_hidden=0.0, dropout_p_embed=0.0,
+                               compute_dtype="float32"))
+    model, built = _fit_built(cfg, train)
+    n_items, sched = model.n_items, built["schedules"][0]
+    # negatives drawn with the draw's sampler, on the CPU, fed to both devices
+    neg = draw_negatives(tstep.make_generator(cfg.seed, "cpu"), built["samp1"], sched.n_steps,
+                         cfg.n_sample, n_items, cfg.sample_alpha, cfg.sampler)
+
+    def setup(d):  # (state, chunk function, sampler table, logq table)
+        return (tstep.init_train_state(cfg, n_items, d), tstep.make_chunk_fn(cfg, n_items),
+                built["samp1"].to(d), built["logp0"].to(d))
+
+    cpu, card = setup("cpu"), setup(resolve_device(DEVICE))
+
+    def tree(state):
+        return {"params": dict(_leaves(state.params)),
+                "opt": dict(_leaves(state.opt_state)),
+                "H": dict(_leaves(list(state.H)))}
+
+    def sync():  # the card's tensors take the CPU's values, in place
+        want = tree(cpu[0])
+        for what, leaves in tree(card[0]).items():
+            for k, t in leaves.items():
+                t.copy_(want[what][k])
+
+    # adam's step lr * m^ / (sqrt(v^) + eps) has a slope of up to lr / eps
+    # in the gradient near 0, and the card sums the gradient in another
+    # order (ROADMAP F6): each entry of an adam parameter, and of its
+    # momentum, may differ by lr times the difference of the directions
+    # that the two devices' float32 moments give (each moment held to the
+    # state tolerance) beyond its tolerance.
+    # The first ADAM_READINGS entries past 1e-5 are read back: the gradient
+    # on both devices (from the first moment: m = v1 m_old + (1 - v1) g),
+    # the moments, and the gradient difference in float32 roundings of its
+    # row's largest gradient.
+    adam, opt = cfg.adapt == "adam", make_optimizer(cfg)
+    readings, n_past = [], 0
+    sync()
+    loss_err = leaf_err = 0.0
+    for t in range(sched.n_steps):
+        sl = [a[t:t + 1] for a in (sched.in_idx, sched.out_idx, sched.valid, sched.reset)]
+        before = _adam_moments(cfg, cpu[0]) if adam else {}
+        l_cpu, _ = cpu[1](cpu[0], *sl, cpu[2], cpu[3], neg=neg[t:t + 1])
+        l_dev, _ = card[1](card[0], *sl, card[2], card[3], neg=neg[t:t + 1])
+        l_cpu, l_dev = float(l_cpu), float(l_dev)
+        if not (math.isfinite(l_cpu) and math.isfinite(l_dev)):
+            # a diverging trajectory: both devices at the same step, or a fault
+            if math.isfinite(l_cpu) or math.isfinite(l_dev):
+                raise AssertionError(f"fuzz {kw}: step {t} loss card {l_dev} CPU {l_cpu}")
+            return t, loss_err, leaf_err, (n_past, readings)
+        # relative, and 1e-7 absolute for a loss that has cancelled below 1e-3
+        rel = abs(l_dev - l_cpu) / max(abs(l_cpu), 1e-3)
+        loss_err = max(loss_err, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"fuzz {kw}: step {t} loss card {l_dev} CPU {l_cpu}")
+        got, want = tree(card[0]), tree(cpu[0])
+        extra = {}
+        if adam:
+            m_dev, m_cpu = _adam_moments(cfg, card[0]), _adam_moments(cfg, cpu[0])
+            for k in m_cpu:
+                if m_cpu[k][4]:
+                    extra[k] = cfg.learning_rate * (_adam_direction(opt, *m_dev[k][:3])
+                                                    - _adam_direction(opt, *m_cpu[k][:3])).abs()
+                    if m_cpu[k][3] is not None:
+                        extra[m_cpu[k][3]] = extra[k]
+                dp = (got["params"][k].detach().double().cpu()
+                      - want["params"][k].double()).abs()
+                past = (dp > 1e-5).nonzero().tolist()
+                n_past += len(past)
+                past = past[:ADAM_READINGS - len(readings)]
+                if not past:
+                    continue
+                g_dev = (m_dev[k][0] - opt.v1 * before[k][0]) / (1.0 - opt.v1)
+                g_cpu = (m_cpu[k][0] - opt.v1 * before[k][0]) / (1.0 - opt.v1)
+                for ix in map(tuple, past):
+                    row = g_cpu[ix[0]] if g_cpu.dim() == 2 else g_cpu
+                    dg = float(g_dev[ix] - g_cpu[ix])
+                    readings.append({
+                        "step": t, "leaf": k, "index": list(ix),
+                        "param_diff": float(dp[ix]),
+                        "allowed": 1e-5 + float(extra[k][ix]) if k in extra else 1e-5,
+                        "g_card": float(g_dev[ix]), "g_cpu": float(g_cpu[ix]), "dg": dg,
+                        "m_card": float(m_dev[k][0][ix]), "m_cpu": float(m_cpu[k][0][ix]),
+                        "v_card": float(m_dev[k][1][ix]), "v_cpu": float(m_cpu[k][1][ix]),
+                        "dg_in_roundings_of_row_max":
+                            abs(dg) / (2.0**-24 * float(row.abs().max())),
+                        "moments": "float32" if m_cpu[k][4] else "bfloat16 (stochastic)"})
+        for what in got:
+            for k, v in got[what].items():
+                diff, ok = _close(v, want[what][k], what, extra.get(k, 0.0))
+                leaf_err = max(leaf_err, diff)
+                if not ok:
+                    raise AssertionError(f"fuzz {kw}: step {t} {what}{k} card and CPU "
+                                         f"differ by {diff}; adam entries past 1e-5: "
+                                         f"{readings}")
+        sync()
+    runner = card[1].runner
+    if runner.graph is None or runner.warm + runner.replays != sched.n_steps:
+        raise AssertionError(f"fuzz {kw}: the card's chunk did not replay its step "
+                             f"({vars(runner)})")
+    return sched.n_steps, loss_err, leaf_err, (n_past, readings)
+
+
+def _fuzz_run(draw, width, kw, tmp):
+    """One run of the fuzz phase (module doc): its record."""
+    import torch
+
+    from gru4rec_tpu_torch import GRU4Rec, GRU4RecConfig, evaluate
+    from gru4rec_tpu_torch.utils.cuda_graph import WARMUP_STEPS
+
+    t0 = time.time()
+    train, test = fuzz_sessions(120, seed=draw), fuzz_sessions(25, seed=100 + draw)
+    cfg = GRU4RecConfig(**kw)
+    name = f"fuzz draw {draw} width {width}"
+
+    graphed, fn, launches = _fuzz_fit(cfg, train, eager=False)
+    eager, fn_e, launches_e = _fuzz_fit(GRU4RecConfig(**kw), train, eager=True)
+    steps = sum(e["steps"] for e in graphed.epoch_stats)
+    runner = fn.runner
+    captured = runner is not None and runner.graph is not None and fn_e.runner is None
+    if not captured or runner.warm != WARMUP_STEPS or runner.replays != steps - WARMUP_STEPS:
+        raise AssertionError(f"{name}: fit did not replay its captured step on every step "
+                             f"after the warm-up ({steps} steps, runner "
+                             f"{runner and vars(runner)})")
+    want = dict(_leaves({"params": graphed._train_state.params,
+                         "opt_state": graphed._train_state.opt_state,
+                         "H": list(graphed._train_state.H)}))
+    got = dict(_leaves({"params": eager._train_state.params,
+                        "opt_state": eager._train_state.opt_state,
+                        "H": list(eager._train_state.H)}))
+    differ = [k for k in want if not _same_bits(got[k], want[k])]
+    losses = [e["loss"] for e in graphed.epoch_stats]
+    bit_equal = not differ and losses == [e["loss"] for e in eager.epoch_stats]
+    if not bit_equal or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: the captured fit and the eager loop differ: "
+                             f"leaves {differ}, losses {losses} and "
+                             f"{[e['loss'] for e in eager.epoch_stats]}")
+    tables = fuzz_tables(graphed)
+    per_step = fuzz_launches_per_step(cfg, tables)
+    want_launches = {m: per_step.get(m, 0) * steps for m in launches}
+    if launches != want_launches or launches_e != want_launches:
+        raise AssertionError(f"{name}: launches {launches} (eager {launches_e}) over "
+                             f"{steps} steps, expected {per_step} per step")
+
+    # evaluation: the captured step against the eager loop
+    graphs = {}
+    rec, mrr = evaluate(graphed, test, cut_off=[1, 5], batch_size=8, _graphs=graphs)
+    rec_e, mrr_e = evaluate(graphed, test, cut_off=[1, 5], batch_size=8, _eager=True)
+    eval_replays = sum(g.replays for g in graphs.values())
+    if (rec, mrr) != (rec_e, mrr_e) or eval_replays < 1 or \
+            not all(0.0 <= v <= 1.0 for v in rec + mrr):
+        raise AssertionError(f"{name}: evaluate captured {rec} {mrr} ({eval_replays} "
+                             f"replays), eager {rec_e} {mrr_e}")
+    graphs.clear()
+
+    # savemodel -> loadmodel -> predict_topk
+    first = test.groupby("SessionId").head(1).head(cfg.batch_size)
+    sessions, items = first["SessionId"].values, first["ItemId"].values
+    ids, scores = graphed.predict_topk(sessions, items, k=5, batch=cfg.batch_size)
+    path = os.path.join(tmp, f"fuzz{draw}_{width}.npz")
+    graphed.savemodel(path)
+    loaded = GRU4Rec.loadmodel(path, device=DEVICE)
+    ids2, scores2 = loaded.predict_topk(sessions, items, k=5, batch=cfg.batch_size)
+    topk_equal = bool((ids == ids2).all() and np.array_equal(scores, scores2))
+    if not topk_equal:
+        raise AssertionError(f"{name}: predict_topk after save and load differs:\n"
+                             f"{ids}\n{ids2}\n{scores}\n{scores2}")
+
+    cpu_steps, loss_err, leaf_err, (n_past, readings) = _fuzz_card_vs_cpu(kw, train)
+    mode = (f"emb{kw['embedding']}" if "embedding" in kw
+            else "constrained" if kw.get("constrained_embedding") else "onehot")
+    summary = (f"{kw['loss']}/{kw['final_act']} {kw['hidden_act']} {kw['layers']} {mode} "
+               f"{kw['adapt']} m{kw['momentum']} {kw['opt_state_dtype']} "
+               f"n{kw['n_sample']} {kw['sampler']} a{kw['sample_alpha']} "
+               f"cap{kw['grad_cap']} logq{kw['logq']}")
+    del graphed, eager, loaded
+    torch.cuda.empty_cache()
+    return {"phase": "fuzz", "draw": draw, "width": width, "config": summary,
+            "tables": tables, "launches_per_step": per_step, "steps": steps,
+            "captured": captured, "replays": runner.replays, "bit_equal": bit_equal,
+            "loss": losses, "recall": rec, "eval_replays": eval_replays,
+            "topk_equal": topk_equal, "cpu_steps": cpu_steps,
+            "card_vs_cpu_loss_max_rel_err": loss_err, "card_vs_cpu_max_abs_err": leaf_err,
+            "adam_entries_past_1e-5": n_past, "adam_readings": readings,
+            "seconds": time.time() - t0}
+
+
+def phase_fuzz(smi_line):
+    """The JAX package's config-surface fuzz on the card (module doc): one
+    line per run, then a ``fuzz_summary`` line; returns the summary."""
+    t0 = time.time()
+    launches, records = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for draw, width, kw in fuzz_runs():
+            rec = _fuzz_run(draw, width, kw, tmp)
+            emit(rec)
+            records.append(rec)
+            for m, n in rec["launches_per_step"].items():
+                launches[m] = launches.get(m, 0) + n * rec["steps"]
+    out = {"phase": "fuzz_summary", "runs": len(records),
+           "draws": len({r["draw"] for r in records}),
+           "wide_runs": sum(r["width"] == FUZZ_WIDE for r in records),
+           "steps": sum(r["steps"] for r in records),
+           "cpu_steps": sum(r["cpu_steps"] for r in records),
+           "launches": launches,
+           "card_vs_cpu_loss_max_rel_err": max(r["card_vs_cpu_loss_max_rel_err"]
+                                               for r in records),
+           "card_vs_cpu_max_abs_err": max(r["card_vs_cpu_max_abs_err"] for r in records),
+           "adam_entries_past_1e-5": sum(r["adam_entries_past_1e-5"] for r in records),
+           "seconds": time.time() - t0, "card": smi_line}
+    emit(out)
+    if out["runs"] != FUZZ_DRAWS + FUZZ_WIDE_DRAWS:
+        raise AssertionError(f"fuzz: {out['runs']} runs")
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# paropt_sweep: scripts/run_paropt_sweep_torch.py
+PAROPT_SWEEP_TRIALS = 3
+PAROPT_SWEEP_TIMEOUT = 900
+
+
+def phase_paropt_sweep(smi_line):
+    """``scripts/run_paropt_sweep_torch.py 3``: three paropt trials at the
+    sweep's GRU-224 / batch-80 / 2048-negative shape from a copy of the
+    package with an empty build directory (trial 1 builds the kernel and
+    the schedule builder), then paropt's final run of the best parameters:
+    exit 0, a metric per trial, ``cache_shared`` true, and the final run's
+    Recall@20 equal to the best trial's (a repeat of the same trial,
+    printed to 6 decimals; one recall step of the 40,000-event test set is
+    about 3e-5)."""
+    t0 = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [sys.executable, os.path.join(root, "scripts", "run_paropt_sweep_torch.py"),
+             str(PAROPT_SWEEP_TRIALS), tmp], capture_output=True, text=True,
+            timeout=PAROPT_SWEEP_TIMEOUT, cwd=root)
+        log = open(os.path.join(tmp, "sweep.log")).read() \
+            if os.path.exists(os.path.join(tmp, "sweep.log")) else ""
+    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+    trials, summ = lines[:-1], (lines[-1] if lines else {})
+    final = [ln for ln in log.split("Running final eval @[20]:")[-1].splitlines()
+             if ln.startswith("Recall@20:")]
+    metrics = [t.get("metric") for t in trials]
+    best = max((m for m in metrics if m is not None), default=None)
+    final_recall = final[0].split()[1] if final else None
+    out = {"phase": "paropt_sweep", "rc": res.returncode, "trials": trials,
+           "summary": summ, "final_recall@20": final_recall,
+           "repeat_equal": best is not None and final_recall == f"{best:.6f}",
+           "seconds": time.time() - t0, "card": smi_line}
+    emit(out)
+    if res.returncode != 0 or summ.get("rc") != 0 or \
+            summ.get("n_trials") != PAROPT_SWEEP_TRIALS or None in metrics or \
+            summ.get("cache_shared") is not True or not out["repeat_equal"]:
+        raise AssertionError(f"paropt_sweep: {out}\n{res.stderr[-3000:]}\n{log[-3000:]}")
+
+
+# ---------------------------------------------------------------------- #
 # bench, bench_scaling: the port's harnesses, each as a fresh subprocess
 BENCH_TIMEOUT = 900    # seconds for the bench, its three epoch-1 children included
 SCALING_TIMEOUT = 600
@@ -3178,6 +3713,8 @@ def main() -> int:
     paths["published_rees46"] = phase_published(smi_line)["rees46"]
     phase_examples(smi_line)
     phase_hbm_budget(smi_line)
+    fuzz = phase_fuzz(smi_line)
+    phase_paropt_sweep(smi_line)
     phase_bench(smi_line)
     phase_bench_scaling(smi_line)
     # library_ms: no single PyTorch call computes these functions (PERF.md);
@@ -3189,6 +3726,7 @@ def main() -> int:
         "replaces": f"gru4rec_tpu/ops/kernels/sparse_update.py:{line}",
         "path": timing[key]["path"],
         "launches": paths[phase]["launches"][mode],
+        "fuzz_launches": fuzz["launches"].get(mode, 0),
         **{k: timing[key][k] for k in ("max_abs_err", "ms", "step_ms", "plain_ms",
                                        "bound_ms")},
         "bound_by": "bytes",

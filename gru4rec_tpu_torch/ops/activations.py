@@ -64,7 +64,9 @@ def _tanh(x, col_valid=None):
 
 
 def _relu(x, col_valid=None):
-    return torch.clamp(x, min=0)
+    # torch.maximum splits the gradient of a tie evenly, as jnp.maximum
+    # does: the derivative at x == 0 is 0.5 (clamp's would be 1)
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def _sigmoid(x, col_valid=None):

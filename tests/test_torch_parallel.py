@@ -76,6 +76,7 @@ from gru4rec_tpu_torch.data.tools import compute_offset  # noqa: E402
 from gru4rec_tpu_torch.models import gru as tgru  # noqa: E402
 from gru4rec_tpu_torch.ops.sampling import build_alias_table  # noqa: E402
 from gru4rec_tpu_torch.parallel import dist_step, mesh as tmesh  # noqa: E402
+from test_config_fuzz import draw_config  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
@@ -86,8 +87,8 @@ SPAWN_TIMEOUT = 240  # seconds for every spawn together
 # kept eager)
 FORMS = ["seed_forms", "gather_forms", "eager_by_design"]
 SHAPES = {
-    "2x2": ("env", ["chunk", "padding", "fit", "checkpoint", "retrain", "evaluate", "topk"]
-            + FORMS),
+    "2x2": ("env", ["chunk", "padding", "clip", "fit", "checkpoint", "retrain", "evaluate",
+                    "topk"] + FORMS),
     "1x2": ("tcp", ["chunk", "evaluate", "topk"] + FORMS),
     "2x1": ("env", ["chunk", "padding", "evaluate", "topk"] + FORMS),
     "1x1": ("none", ["bit_equal", "chunk"] + FORMS),
@@ -106,6 +107,19 @@ CHUNK_SHAPES = {"2x2": list(CHUNK_CASES),
                 "2x1": ["constrained-adagrad", "onehot-adagrad", "constrained-adagrad-sr",
                         "embedding-adam-sr"],
                 "1x1": list(CHUNK_CASES)}
+# the grad_cap draws of the config-surface fuzz (tests/test_config_fuzz.py;
+# 2 and 11 one-hot, 3 with an embedding, 0 constrained): each draw's model,
+# loss and optimizer fields on the chunk cases' data, through the 2x2 mesh
+# against the port's single device (worker task "clip"), where global-norm
+# clipping runs over row-sharded sparse gradients. The drawn cap of 5 is
+# above every step's gradient norm on this data, so each draw runs again
+# with a cap of 1e-4, which the steps' norms exceed.
+CLIP_DRAWS = (0, 2, 3, 11)
+CLIP_CASES = [f"clip-{d}{v}" for d in CLIP_DRAWS for v in ("", "-tight")]
+TIGHT_CAP = 1e-4
+CLIP_FIELDS = ("loss", "final_act", "hidden_act", "layers", "n_sample", "adapt", "momentum",
+               "lmbd", "grad_cap", "logq", "smoothing", "embedding",
+               "constrained_embedding", "learning_rate", "opt_state_dtype")
 CHUNK_N_ITEMS = 90
 CUTOFFS = [1, 5, 20]
 TIE_MODES = ("standard", "conservative", "median")
@@ -119,6 +133,17 @@ def chunk_cfg(**kw):
                 constrained_embedding=False, embedding=0, seed=3)
     args.update(kw)
     return args
+
+
+def clip_cfg(case):
+    """``clip-<draw>``: the draw's fields; ``clip-<draw>-tight``: with the cap
+    at ``TIGHT_CAP``."""
+    draw = int(case.split("-")[1])
+    kw = draw_config(np.random.RandomState(1000 + draw))
+    assert kw["grad_cap"] > 0
+    if case.endswith("-tight"):
+        kw["grad_cap"] = TIGHT_CAP
+    return chunk_cfg(**{k: kw[k] for k in CLIP_FIELDS if k in kw})
 
 
 # the fit case: the slice's config (tests/test_torch_slice.py) at chunk_size 1
@@ -181,9 +206,11 @@ def _chunk_inputs(inputs):
     n_pad = tgru.pad_items(n, 32)
     cdf = np.linspace(0.01, 1.0, n, dtype=np.float32)
     logp0 = (np.abs(rng.randn(n_pad)) + 0.1).astype(np.float32)
-    cases = dict(CHUNK_CASES, padding=dict(constrained_embedding=True))
+    cases = {case: chunk_cfg(**kw) for case, kw in CHUNK_CASES.items()}
+    cases["padding"] = chunk_cfg(constrained_embedding=True)
+    cases.update({case: clip_cfg(case) for case in CLIP_CASES})
     for case, kw in cases.items():
-        cfg = gru4rec_tpu.GRU4RecConfig(**chunk_cfg(**kw))
+        cfg = gru4rec_tpu.GRU4RecConfig(**kw)
         in_c = rng.randint(0, n, (C, B)).astype(np.int32)
         out_c = rng.randint(0, n, (C, B)).astype(np.int32)
         valid = np.ones((C, B), bool)
@@ -199,7 +226,7 @@ def _chunk_inputs(inputs):
             jax.random.fold_in(jax.random.fold_in(key, 1), 0), jnp.asarray(cdf), C,
             cfg.n_sample, n, cfg.sample_alpha, cfg.sampler))
         p = f"chunk/{case}"
-        inputs.update({f"{p}/cfg": json.dumps(chunk_cfg(**kw)), f"{p}/n_items": n,
+        inputs.update({f"{p}/cfg": json.dumps(kw), f"{p}/n_items": n,
                        f"{p}/in": in_c, f"{p}/out": out_c, f"{p}/valid": valid,
                        f"{p}/reset": reset, f"{p}/samp1": cdf, f"{p}/logp0": logp0,
                        f"{p}/neg": neg})
@@ -210,6 +237,7 @@ def _chunk_inputs(inputs):
                     jstep.SR_TABLE_SALT[table]))) for s in range(C)], np.int64)
     for shape, names in CHUNK_SHAPES.items():
         inputs[f"chunk_cases/{shape}"] = json.dumps(names)
+    inputs["clip_cases"] = json.dumps(CLIP_CASES)
 
 
 def _fit_inputs(inputs):
@@ -477,6 +505,28 @@ def test_dist_chunk_matches_jax(runs, shape, case):
             np.testing.assert_allclose(o[f"chunk/{case}/H/{i}"], np.asarray(h),
                                        rtol=2e-4, atol=1e-6)
 
+
+
+@pytest.mark.parametrize("case", CLIP_CASES)
+def test_grad_cap_on_the_mesh_equals_one_device(runs, case):
+    """Global-norm clipping on the 2x2 mesh, over the row-sharded sparse
+    gradients of every rank, against the port's single device on the same
+    chunk: loss rtol 1e-4, parameters and state within the mesh tolerances
+    above; under the tight cap the clip bites (the unclipped chunk ends
+    elsewhere), under the drawn cap of 5 it does not."""
+    bites = case.endswith("-tight")
+    for o in runs.out["2x2"]:
+        loss, loss1 = o[f"{case}/loss"]
+        np.testing.assert_allclose(loss, loss1, rtol=1e-4)
+        one = _tree(o, f"{case}/single")
+        got = _tree(o, f"{case}/mesh")
+        assert set(got) == set(one)
+        for k, w in one.items():
+            bf16 = k.startswith("sparse/") and str(o[f"{case}/dtype/{k}"]) == "bfloat16"
+            np.testing.assert_allclose(got[k], w, rtol=0 if bf16 else 2e-4,
+                                       atol=1e-3 if bf16 else 1e-6, err_msg=f"{case} {k}")
+        moved = np.abs(one["params/Wy"] - o[f"{case}/uncapped_Wy"]).max()
+        assert (moved > 1e-4) if bites else (moved == 0), (case, moved)
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))

@@ -151,6 +151,45 @@ def task_padding(mesh, inputs, out, out_dir):
     flat("padding/single", single.params, out)
 
 
+def task_clip(mesh, inputs, out, out_dir):
+    """The grad_cap cases: one chunk on the mesh, the same chunk on one
+    device, and on one device without the cap (its ``Wy``)."""
+    import torch
+
+    from gru4rec_tpu_torch.models.gru import input_mode
+    from gru4rec_tpu_torch.train.step import (init_train_state, make_chunk_fn,
+                                              sparse_table_names)
+
+    for case in json.loads(str(inputs["clip_cases"])):
+        cfg_kw = json.loads(str(inputs[f"chunk/{case}/cfg"]))
+        loss, _, state = _chunk(mesh, inputs, case, cfg_kw)
+        flat(f"{case}/mesh/params", state.params, out)
+        flat(f"{case}/mesh/sparse", state.opt_state["sparse"], out)
+        for table, st in state.opt_state["sparse"].items():
+            for slot, v in st.items():
+                out[f"{case}/dtype/sparse/{table}/{slot}"] = np.array(
+                    str(v.dtype).replace("torch.", ""))
+        n_items = int(inputs[f"chunk/{case}/n_items"])
+        sched = [inputs[f"chunk/{case}/{k}"] for k in ("in", "out", "valid", "reset")]
+        for cap in (cfg_kw["grad_cap"], 0.0):
+            cfg = _cfg(dict(cfg_kw, grad_cap=cap))
+            single = init_train_state(cfg, n_items, "cpu")
+            seeds = None
+            if cfg.opt_state_dtype == "bfloat16_sr":
+                seeds = {t: inputs[f"chunk/{case}/seed/{t}"]
+                         for t in sparse_table_names(input_mode(cfg))}
+            loss1, _ = make_chunk_fn(cfg, n_items)(
+                single, *sched, torch.from_numpy(inputs[f"chunk/{case}/samp1"]),
+                torch.from_numpy(inputs[f"chunk/{case}/logp0"]),
+                neg=torch.from_numpy(inputs[f"chunk/{case}/neg"]), sr_seeds=seeds)
+            if cap:
+                out[f"{case}/loss"] = np.array([loss, float(loss1)])
+                flat(f"{case}/single/params", single.params, out)
+                flat(f"{case}/single/sparse", single.opt_state["sparse"], out)
+            else:
+                out[f"{case}/uncapped_Wy"] = single.params["Wy"].numpy()
+
+
 @contextlib.contextmanager
 def _injected(draws):
     """Both chunk functions' negative draw patched with the rows of
