@@ -26,27 +26,43 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    time per call of every operation the wrapper issues (``ms``, from
    ``torch.profiler``; ``ops_per_call`` of them, the kernel alone), the
    wrapper's and the plain version's time per call (CUDA events);
-4. reference — the training slice on the card against the same slice on
+4. mixed_mm — the bfloat16 mixed-precision product of
+   ``ops/mixed_mm.py`` (``compute_dtype="bfloat16"``, every configuration's
+   default) on the card's bf16 tensor cores at the main paths' shapes: the
+   flagship step's four products, rees46's training products (batch 240,
+   GRU-512) and its evaluation scores (512 x 512 x 200,064), two of the
+   rsc15 family's (GRU-100, batch 32) and two of ``learn_sr``'s (an
+   embedding of 12), serving at batch 1 and 256; each against its plain version on the same inputs (the
+   product within ``2·K·2^-24·(|a|·|b|)`` entrywise, each gradient within
+   one bf16 ulp beyond its float32 sums' bound and bit-equal on 99% of its
+   entries), captured against eager bit for bit with the launches counted
+   per replay, and timed (the route, the plain version, the bare cuBLAS
+   GEMM, the cast of the right operand); ``mixed_mm_route``: a traced
+   flagship step whose GEMMs are all bf16 tensor-core GEMMs, and with
+   float32 products all float32 ones. Every training phase then checks the
+   products' launches: ``mm_per_step`` per step, the forward ones per
+   evaluation step;
+5. reference — the training slice on the card against the same slice on
    the CPU at a small size, step by step;
-5. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
+6. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
    batch 80, bpr-max/elu-0.5, 2048 pop^0.4 alias negatives, constrained
    embedding, adagrad + momentum 0.4) for one epoch on synthetic
    RetailRocket-shaped data, then ``evaluate`` on held-out sessions, with
    the kernel's launch counters read around that run;
-6. train_sr_control — the same with ``opt_state_dtype="bfloat16_sr"``
+7. train_sr_control — the same with ``opt_state_dtype="bfloat16_sr"``
    but adagrad's bf16 accumulator stored round-to-nearest (no SR; K1 with
    bf16 state): the reading that ``train_sr``'s limit must exclude;
-7. train_sr — the same with stochastic rounding (K2): its loss within 2%
+8. train_sr — the same with stochastic rounding (K2): its loss within 2%
    of the train phase's, its summed ``Wy`` accumulator within
    ``SR_ACC_REL_LIMIT`` of the train phase's float32 one, the control's
    outside that limit;
-8. train_adam_sr — the flagship with adam (learning rate 0.001) and
+9. train_adam_sr — the flagship with adam (learning rate 0.001) and
    ``bfloat16_sr`` state (K3 on the full-width ``Wy``);
-9. train_onehot — the RSC15 config of ``param_samples/rsc15_bpr-max.py``
+10. train_onehot — the RSC15 config of ``param_samples/rsc15_bpr-max.py``
    (GRU-100, one-hot input, batch 32, 2048 uniform negatives, adagrad +
    momentum 0.3) for one epoch on synthetic sessions over RSC15's 37,483
    items (K4 on ``Wx0``, K1 on ``Wy``);
-10. graph  — every training phase runs ``fit`` through the captured step
+11. graph  — every training phase runs ``fit`` through the captured step
    (``train/step.py``: three eager warm-up steps, then one CUDA graph
    replayed per step; each record's ``graph`` gives the replays and the
    bytes the graph's pool reserved). Here the flagship (K1), ``train_sr``
@@ -61,11 +77,12 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    equal to the eager loop's and different on every replay;
    ``graph_seed``: K2 and K3 with the seed read on the device bit-equal to
    the seed by value;
-11. learn  — the markov-chain drive of the verify recipe through the port,
+12. learn  — the markov-chain drive of the verify recipe through the port,
    which must reach recall@1 >= 0.9;
-12. learn_sr — the same chain with adam, an embedding of 12 and
-   ``bfloat16_sr`` state (K3 on ``E`` and ``Wy``), recall@1 >= 0.9;
-13. proto   — the adagrad prototypes P1 (merged ``[t | a]`` layout) and P2
+13. learn_sr — the same chain with adam, an embedding of 12 and
+   ``bfloat16_sr`` state (K3 on ``E`` and ``Wy``) at its seed and seeds
+   0-9, mean recall@1 >= 0.9;
+14. proto   — the adagrad prototypes P1 (merged ``[t | a]`` layout) and P2
    (block-local loop over the real rows, ``cp.async`` ring) of
    ``ops/kernels/proto_adagrad.py``, both sort-free and one operation per
    call: each against its plain version at a small shape and at every
@@ -80,7 +97,7 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``scripts/proto_v3_kernel_torch.py`` (one line per shape and variant,
    each one operation per call) and each kernel's whole-call timing at the
    RetailRocket shape;
-14. serve   — serving on the train phase's fitted flagship model after
+15. serve   — serving on the train phase's fitted flagship model after
    ``scripts/measure_serving.py``: ``predict_topk`` (k = 20) at batch 1, 64
    and 256 through its captured call (``models/gru4rec.py::_ServeGraph``)
    and eagerly in turns (warm median ms per call, device ms per call,
@@ -90,43 +107,43 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``cast_for_serving("bfloat16")``; the captured calls against eager
    serving bit for bit over session changes, a change of k, a change of
    batch and the bfloat16 cast (``graph_vs_eager``);
-15. eval_graph — the captured evaluation step against the eager loop at
+16. eval_graph — the captured evaluation step against the eager loop at
    the flagship's and rees46's widths: Recall, MRR and final lanes
    bit-equal in the four tie modes, full catalog and subset; ms per step,
    host launches per step, the memory peak and the graph pool's bytes of
    the eager loop, a standalone call and a kept graph; a standalone call
    leaves no memory allocated;
-16. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
+17. checkpoint — ``savemodel(include_optimizer=True)`` of that model and
    ``loadmodel`` on the card (archive bytes, save and load seconds; equal
    top-k scores bit for bit), then ``fit(retrain=True)`` of the loaded
    model on data with 500 unseen items (the tables grow; K1 once per step);
-17. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
+18. resume  — the markov chain with adagrad and ``bfloat16_sr`` state (K2):
    a run resumed from a training checkpoint against two uninterrupted runs
    (``resume_diff <= repeat_diff``), with a ``profile_dir`` trace; in-fit
    validation every epoch with ``early_stop_patience`` and ``keep_best``,
    which builds one validation schedule and captures one evaluation step
    per ``fit`` (``valid_schedules``, ``valid_graphs``);
-18. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
+19. cli     — ``python -m gru4rec_tpu_torch.cli.run`` as subprocesses: the
    flagship trained, saved and evaluated from TSV files, the archive
    loaded and evaluated to the same ``PRIMARY METRIC:``, and a NaN run
    that exits 2;
-19. scheduler — the native schedule builder (``data/_native_scheduler.py``,
+20. scheduler — the native schedule builder (``data/_native_scheduler.py``,
    ``csrc/scheduler.cpp`` built by ``g++``) against the numpy builder on the
    train phase's split and on a RetailRocket-length split of 750,000 events:
    equal arrays, and the median ms of 5 builds each. Every training phase
    (``train`` to ``learn_sr``, and ``resume``) prints ``native_schedules``
    and ``numpy_schedules``, the schedules built each way while it ran: none
    by numpy;
-20. legacy_eval — on the train phase's flagship model and test split,
+21. legacy_eval — on the train phase's flagship model and test split,
    ``evaluate_sessions_batch`` (the ``predict_next_batch`` path) against
    ``evaluate`` (recall and MRR @20 within 0.03), ``Pop`` and ``ItemKNN``
    through ``evaluate_sessions``; seconds and events/s of each evaluator,
    and the device memory peak of ``evaluate``;
-21. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
+22. paropt  — ``python -m gru4rec_tpu_torch.cli.paropt``: a random search
    of two trials over the flagship's learning rate and momentum, then the
    final run of the best at @1, 5, 20; ``-tf`` reaches every child (one
    JSONL ``epoch`` event each);
-22. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
+23. mesh    — the (data, model) mesh of ``gru4rec_tpu_torch/parallel/``
    over ``torch.distributed``, in three parts. ``mesh_shard_kernel``: K1
    and K2 on the flagship ``Wy`` and K4 on the RSC15 ``Wx0``, cut into 2
    and 4 row-shards as a mesh's model ranks hold them, each shard's call
@@ -160,7 +177,7 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    ``SR_ACC_REL_LIMIT`` of the float32 run's; K1 (K2) once per step on
    every rank; each rank's ``(di, mi, r0)``. A rank that fails or times
    out fails the phase;
-23. published — the nine published configurations, loaded through the
+24. published — the nine published configurations, loaded through the
    port's harnesses (``examples/reproduce_published.load_config`` on the
    six paramfile copies, ``examples/rsc15/run_rsc15.CONFIGS``) at their
    published width, loss, ``logq``, dropout, momentum and batch, cut to one
@@ -175,18 +192,18 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    epochs at full width on the markov chain, Recall@5 >= 0.9 (>= 0.5 for
    the one-hot bpr-max configuration, which learns that chain slowly in
    both packages);
-24. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
+25. examples — ``python -m gru4rec_tpu_torch.examples.<name>`` as
    subprocesses: the quickstart (exit 0), ``reproduce_published
    retailrocket`` with the paramfile as published on a synthetic split of
    30,000 events (exit 1, ``PARITY FAIL``, a report of 8 finite metrics),
    ``rsc15.preprocess`` on synthetic raw clicks (four TSVs);
-25. hbm_budget — ``scripts/measure_hbm_budget_torch.py``: ``table`` (the
+26. hbm_budget — ``scripts/measure_hbm_budget_torch.py``: ``table`` (the
    bytes per item and fixed of the parameters, the optimizer state and the
    run's buffers for each adapt x ``opt_state_dtype`` at GRU-512, batch 240,
    with the graph pool and the capture stream's workspace read from one
    probe on the card) and one ``try`` at 1,000,000 items with adam and
    ``bfloat16_sr`` (``ok``, K3 once per step, its memory reserved);
-26. fuzz    — the JAX package's config-surface fuzz
+27. fuzz    — the JAX package's config-surface fuzz
    (``tests/test_config_fuzz.py``: its generator, copied here as
    ``fuzz_draw_config`` and ``fuzz_sessions``, seed ``1000 + draw``) on the
    card: draws 0-23 at their drawn widths, then draws 0-7 with every layer
@@ -209,14 +226,14 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    every adam entry past 1e-5 read back. One line per run, then
    ``fuzz_summary`` (runs, steps, launches by mode, the largest
    card-against-CPU differences, the adam entries past 1e-5);
-27. paropt_sweep — ``scripts/run_paropt_sweep_torch.py 3``: three paropt
+28. paropt_sweep — ``scripts/run_paropt_sweep_torch.py 3``: three paropt
    trials at the sweep's GRU-224 / batch-80 / 2048-negative shape on
    420,000 synthetic training events, from a copy of the package with an
    empty build directory: exit 0, a metric per trial, ``cache_shared``
    (trial 1's first epoch, which builds the kernel and the schedule
    builder, over 3x the warm trials' median), and paropt's final run of
    the best parameters at the best trial's Recall@20;
-28. bench   — ``python -m gru4rec_tpu_torch.bench`` in full as a fresh
+29. bench   — ``python -m gru4rec_tpu_torch.bench`` in full as a fresh
    subprocess (four flagship epochs at the bench's 750,000 events, then the
    epoch-1 children: two warm, one cold that builds the kernel and the
    schedule builder into an empty directory): exit 0, the result line's
@@ -224,11 +241,12 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    every epoch-1 field a number, ``bench_hw`` the card's name, K1 once per
    step of the four epochs; it prints the line and the card's
    ``nvidia-smi`` line as the harness gave them;
-29. bench_scaling — ``python -m gru4rec_tpu_torch.bench_scaling``: one row
+30. bench_scaling — ``python -m gru4rec_tpu_torch.bench_scaling``: one row
    per data-parallel width the cards allow (one card: devices 1, batch
    80), the keys of ``bench_scaling.py``'s row, K1 once per step;
-30. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
-   one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2), with the ``fuzz``
+31. kernels — one JSON line per the port's kernel table (K1-K4, K1 on the
+   one-hot ``Wy``, K1 on rees46's ``Wy``, P1, P2, and the product at the
+   flagship's scores and rees46's evaluation), with the ``fuzz``
    phase's launches of each mode beside the main path's.
 
 Every phase prints one JSON line; a failed check raises, and the script
@@ -752,6 +770,270 @@ def phase_kernel_timing():
     return out
 
 
+BF16_PEAK_FLOP_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
+FP32_UNIT = 2.0**-24       # float32 unit roundoff
+# mixed_mm's shapes, name -> (M, K, N, width of the table whose rows
+# [:, :K] form the right operand, or None; with a backward pass)
+MIXED_MM_SHAPES = {
+    "flagship projection": (80, 224, 672, None, True),
+    "flagship cell rz": (80, 224, 448, None, True),
+    "flagship cell h": (80, 224, 224, None, True),
+    "flagship scores": (80, 224, 2128, 256, True),
+    "rees46 projection": (240, 512, 1536, None, True),
+    "rees46 cell rz": (240, 512, 1024, None, True),
+    "rees46 cell h": (240, 512, 512, None, True),
+    "rees46 scores": (240, 512, 2288, 640, True),
+    "rees46 evaluation": (512, 512, 200_064, 640, False),
+    # the rsc15 family's GRU-100: a depth whose bf16 rows are 200 bytes
+    "rsc15 cell rz": (32, 100, 200, None, True),
+    "rsc15 scores": (32, 100, 2080, 128, True),
+    # learn_sr's embedding of 12 (rows of 24 bytes) and its scores
+    "learn_sr projection": (32, 12, 192, None, True),
+    "learn_sr scores": (32, 64, 96, 128, True),
+    "serve batch 1": (1, 224, 36_992, 256, False),
+    "serve batch 256": (256, 224, 36_992, 256, False),
+}
+MIXED_MM_REPS = 20          # timed calls of each way, median
+MIXED_MM_MIN_BIT_EQUAL = 0.99
+MIXED_MM_TRACE_STEPS = 16   # flagship steps in each traced window
+
+
+def _median_ms(fn, reps=MIXED_MM_REPS):
+    """Median device time of ``fn()`` over ``reps`` calls, CUDA events
+    around each, after two untimed calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _bf16_ulp(x):
+    """The bfloat16 ulp of each entry of ``|x|`` (0 where x is 0)."""
+    import torch
+
+    m, e = torch.frexp(x.abs())
+    return torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _grad_check(got, want, bound):
+    """(max |got - want|, entries past one bf16 ulp of the larger beyond
+    ``bound``, entries past one ulp, bit-equal share)."""
+    import torch
+
+    diff = (got - want).abs()
+    ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return (float(diff.max()), int((diff > ulp + bound).sum()), int((diff > ulp).sum()),
+            float((got == want).float().mean()))
+
+
+def _mm_case(name, shape, gen):
+    """One shape of ``phase_mixed_mm``: the route against its plain version
+    on the same card inputs, captured against eager, and the timings."""
+    import torch
+
+    from gru4rec_tpu_torch.ops import mixed_mm
+    from gru4rec_tpu_torch.utils.cuda_graph import capture, capture_stream, run_on
+
+    M, K, N, width, backward = shape
+    dev = torch.device(DEVICE)
+    a = (torch.rand((M, K), generator=gen, device=dev) * 2 - 1).requires_grad_(backward)
+    table = (torch.randn((N, width) if width else (K, N), generator=gen, device=dev)
+             * 0.1).requires_grad_(backward)
+    g = torch.randn((M, N), generator=gen, device=dev) * 1e-3 if backward else None
+
+    def right(t):
+        return t[:, :K].T if width else t
+
+    def call(fn):
+        if not backward:
+            with torch.no_grad():
+                return (fn(a, right(table)),)
+        out = fn(a, right(table))
+        ga, gt = torch.autograd.grad(out, (a, table), g)
+        return out.detach(), ga, right(gt)
+
+    mixed_mm.reset_launches()
+    got = call(mixed_mm.mixed_mm)
+    launches = dict(mixed_mm.launches_by_mode)
+    want_launches = {"forward": 1, "backward": 2 if backward else 0}
+    plain = call(mixed_mm.mixed_mm_plain)
+    a16, b16 = a.detach().to(torch.bfloat16).float(), right(table.detach()).to(torch.bfloat16).float()
+    bound = 2 * K * FP32_UNIT * (a16.abs() @ b16.abs())
+    fwd_err = float((got[0] - plain[0]).abs().max())
+    fwd_bad = int(((got[0] - plain[0]).abs() > bound).sum())
+    rec = {"phase": "mixed_mm", "shape": name, "M": M, "K": K, "N": N,
+           "table_width": width, "backward": backward, "launches": launches,
+           "max_abs_err": fwd_err, "past_bound": fwd_bad}
+    del bound
+    if backward:
+        # the card sums the tripled depth, the plain version the depth once
+        bounds = (4 * N * FP32_UNIT * (g.abs() @ b16.abs().T),
+                  4 * M * FP32_UNIT * (a16.abs().T @ g.abs()))
+        for which, x, y, bnd in (("grad_a", got[1], plain[1], bounds[0]),
+                                 ("grad_b", got[2], plain[2], bounds[1])):
+            err, bad, past_ulp, share = _grad_check(x, y, bnd)
+            rec[which] = {"max_abs_err": err, "past_bound": bad, "past_one_ulp": past_ulp,
+                          "bit_equal_share": share, "entries": x.numel()}
+        del bounds
+    # captured against eager, on the capture stream
+    stream = capture_stream(dev)
+    eager = run_on(stream, lambda: call(mixed_mm.mixed_mm))
+    mixed_mm.reset_launches()
+    graph, pool_bytes, captured = capture(lambda: call(mixed_mm.mixed_mm), stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    rec["graph_tally"] = graph.tally
+    rec["graph_bit_equal"] = all(torch.equal(x, y) for x, y in zip(captured, eager))
+    rec["graph_replay_launches"] = dict(mixed_mm.launches_by_mode)
+    del graph, captured, eager
+    # timings: the route (casts + GEMM), the plain version, the bare GEMM on
+    # operands already cast (the library call), the right operand's cast
+    with torch.no_grad():
+        b = right(table.detach())
+        a_ = a.detach()
+        a16_, b16_ = a_.to(torch.bfloat16), b.to(torch.bfloat16)
+        rec["ms"] = _median_ms(lambda: mixed_mm.mixed_mm(a_, b))
+        rec["plain_ms"] = _median_ms(lambda: mixed_mm.mixed_mm_plain(a_, b))
+        rec["library_ms"] = _median_ms(lambda: mixed_mm._tc_mm(a16_, b16_))
+        rec["cast_ms"] = _median_ms(lambda: b.to(torch.bfloat16))
+    if backward:
+        rec["fwd_bwd_ms"] = _median_ms(lambda: call(mixed_mm.mixed_mm))
+        rec["plain_fwd_bwd_ms"] = _median_ms(lambda: call(mixed_mm.mixed_mm_plain))
+    flops = 2.0 * M * K * N
+    moved = 4.0 * (M * K + K * N + M * N)  # a and b read (float32), the scores written
+    rec.update({"tflop_s": flops / rec["ms"] / 1e9,
+                "library_tflop_s": flops / rec["library_ms"] / 1e9,
+                "plain_tflop_s": flops / rec["plain_ms"] / 1e9,
+                "bound_ms": max(moved / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOP_S) * 1e3,
+                "bound_by": "bytes" if moved / HBM_BYTES_PER_S > flops / BF16_PEAK_FLOP_S
+                else "operations"})
+    bad = []
+    recorded = {"mixed_mm": {m: n for m, n in want_launches.items() if n}}
+    if launches != want_launches or rec["graph_tally"] != recorded \
+            or rec["graph_replay_launches"] != want_launches:
+        bad.append("launch counts")
+    if fwd_bad:
+        bad.append("product past 2·K·2^-24·(|a|·|b|)")
+    for which in ("grad_a", "grad_b"):
+        r = rec.get(which)
+        if r and (r["past_bound"] or r["bit_equal_share"] < MIXED_MM_MIN_BIT_EQUAL):
+            bad.append(which)
+    if not rec["graph_bit_equal"]:
+        bad.append("captured differs from eager")
+    return rec, bad
+
+
+def _gemm_kind(name):
+    """The operand type a cuBLAS GEMM kernel's name gives: "bf16" (nvjet's
+    first type letter ``t``, or ``bf16`` in the name), "f32" (nvjet's ``s``,
+    the xmma ``f32f32_f32f32`` kernels, sgemm), else None (not a GEMM)."""
+    low = name.lower()
+    if not any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return None
+    if low.startswith("nvjet_t") or "bf16" in low:
+        return "bf16"
+    if low.startswith("nvjet_s") or "f32f32_f32f32" in low or "sgemm" in low:
+        return "f32"
+    return "other"
+
+
+def _mm_route_trace(smi_line):
+    """The flagship's captured step traced over ``MIXED_MM_TRACE_STEPS``
+    steps with its default bfloat16 products and, as the control, with
+    float32 products: the GEMM kernels by name, kind and runs per step."""
+    import torch
+
+    from gru4rec_tpu_torch.models.gru import pad_items
+    from gru4rec_tpu_torch.models.gru4rec import resolve_device
+    from gru4rec_tpu_torch.train.step import init_train_state, make_chunk_fn
+    from gru4rec_tpu_torch.utils.profiling import trace
+
+    S = MIXED_MM_TRACE_STEPS
+    itemidmap, sched, packed, _ = _flagship_schedule(flagship_cfg())
+    n = len(itemidmap)
+    dev = resolve_device(DEVICE)  # the card's matmul settings
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_cfg(compute_dtype=dtype)
+        state, fn = init_train_state(cfg, n, dev), make_chunk_fn(cfg, n)
+        samp1 = torch.from_numpy(packed).to(dev)
+        logp0 = torch.zeros(pad_items(n, cfg.item_pad_multiple), device=dev)
+
+        def window(w):
+            return fn(state, *[x[w * S:(w + 1) * S] for x in
+                               (sched.in_idx, sched.out_idx, sched.valid, sched.reset)],
+                      samp1, logp0)
+
+        window(0)  # the eager warm-up steps and the capture
+        traced = trace(lambda: window(1), S)
+        gemms = {k: {"kind": _gemm_kind(k), "ms_per_step": v[0], "runs_per_step": v[1]}
+                 for k, v in traced["by_name"].items() if _gemm_kind(k)}
+        out[dtype] = {"gemms": gemms, "replays": fn.runner.replays,
+                      "runs_per_step": {kind: sum(v["runs_per_step"] for v in gemms.values()
+                                                  if v["kind"] == kind)
+                                        for kind in ("bf16", "f32", "other")},
+                      "kernels_per_step": traced["kernels"],
+                      "device_busy_ms_per_step": traced["device_busy_ms"]}
+        del state, fn
+    fwd, bwd = mm_per_step(flagship_cfg())
+    rec = {"phase": "mixed_mm_route", "steps": S, "products_per_step": fwd + bwd, **out,
+           "card": smi_line}
+    emit(rec)
+    bf, ctl = out["bfloat16"]["runs_per_step"], out["float32"]["runs_per_step"]
+    # the tracer drops records now and then: a window may fall short by a few
+    if bf["f32"] or bf["other"] or not 0.9 * (fwd + bwd) <= bf["bf16"] <= fwd + bwd:
+        raise AssertionError(f"mixed_mm_route: the bfloat16 step's GEMMs are not "
+                             f"{fwd + bwd} bf16 tensor-core GEMMs per step: {bf}")
+    if ctl["bf16"] or not ctl["f32"]:
+        raise AssertionError(f"mixed_mm_route: the float32 control's GEMMs are not "
+                             f"float32: {ctl}")
+    return rec
+
+
+def phase_mixed_mm(smi_line):
+    """The bfloat16 mixed-precision product (``ops/mixed_mm.py``, the
+    default ``compute_dtype``) on the card's tensor cores at the main
+    paths' shapes (``MIXED_MM_SHAPES``), each against its plain version on
+    the same card inputs: the product within ``2·K·2^-24·(|a|·|b|)``
+    entrywise; each operand's gradient within one bf16 ulp beyond the
+    float32 sums' bound and bit-equal on at least ``MIXED_MM_MIN_BIT_EQUAL``
+    of its entries; a captured forward and backward bit-equal to eager, its
+    launches counted per replay; the route's, the plain version's, the
+    bare GEMM's and the cast's median ms (CUDA events) with TFLOP/s. Then
+    ``mixed_mm_route``: the flagship step traced, every GEMM a bf16
+    tensor-core GEMM (the float32 control's all float32). Returns {shape:
+    record}."""
+    import torch
+
+    t_phase = time.time()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    records, failed = {}, {}
+    for name, shape in MIXED_MM_SHAPES.items():
+        rec, bad = _mm_case(name, shape, gen)
+        rec["card"] = smi_line
+        emit(rec)
+        records[name] = rec
+        if bad:
+            failed[name] = bad
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"mixed_mm: {failed}")
+    _mm_route_trace(smi_line)
+    emit({"phase": "mixed_mm_summary", "seconds": time.time() - t_phase, "card": smi_line})
+    return records
+
+
 def phase_reference():
     """The training slice on the card against the same slice on the CPU at
     a small size (60 items, layers [32], batch 8, 16 injected negatives,
@@ -901,12 +1183,29 @@ def _graph_record(phase, made, steps):
             "pool_bytes": runner.pool_bytes}
 
 
+def mm_per_step(cfg):
+    """(forward, backward) tensor-core products of one step of ``cfg``
+    (``ops/mixed_mm.py``; none under float32 products): per layer the
+    input projection (none on the one-hot first layer, whose row gather is
+    that product) and the cell's two, then the scores; a gradient of both
+    operands of each but the incoming hidden state's (``H · Wrz``; no
+    gradient flows into ``H``). An evaluation step runs the forward ones."""
+    if cfg.compute_dtype != "bfloat16":
+        return 0, 0
+    layers = len(cfg.layers)
+    fwd = 3 * layers + (0 if _onehot(cfg) else 1)
+    return fwd, 2 * fwd - layers
+
+
 def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extra=None):
     """``GRU4Rec.fit`` for one epoch then ``evaluate``, with the kernel's
-    launch counters set to 0 just before and read just after. ``per_step``
-    = {mode: launches per step} that the path must show (every other mode
-    none); ``fit`` must have replayed its captured step on every step but
-    the warm-up (``graph``: warm-up steps, replays, pool bytes). With
+    and the tensor-core product's launch counters set to 0 just before and
+    read just after. ``per_step`` = {mode: launches per step} that the path
+    must show (every other mode none); the products must number
+    ``mm_per_step`` per training step and its forward ones per evaluation
+    step (``mm_launches``); ``fit`` must have replayed its captured step on
+    every step but the warm-up (``graph``: warm-up steps, replays, pool
+    bytes). With
     ``extra`` (a dict of fields for the record), the record
     also holds ``evaluate``'s seconds and events/s, the device memory peak
     of the run and ``updates``: the table shape, K and state of the
@@ -915,6 +1214,8 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
     import torch
 
     from gru4rec_tpu_torch import GRU4Rec, evaluate
+    from gru4rec_tpu_torch.eval.evaluation import _eval_schedule
+    from gru4rec_tpu_torch.ops import mixed_mm
     from gru4rec_tpu_torch.ops.kernels import sparse_update
 
     model = GRU4Rec(cfg, device=DEVICE)
@@ -923,6 +1224,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     sparse_update.reset_launches()
+    mixed_mm.reset_launches()
     with _schedules() as schedules, _updates(extra is not None) as (eager, captured), \
             _chunk_fns() as made:
         model.fit(train)
@@ -931,8 +1233,15 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
         torch.cuda.synchronize()
         t_eval = time.perf_counter() - t_eval
     by_mode = dict(sparse_update.launches_by_mode)
+    mm_launches = dict(mixed_mm.launches_by_mode)
     steps = sum(e["steps"] for e in model.epoch_stats)
     graph = _graph_record(phase, made, steps)
+    eval_steps = _eval_schedule(model, test, 512, "SessionId", "ItemId", "Time").n_steps
+    fwd, bwd = mm_per_step(cfg)
+    want = {"forward": fwd * (steps + eval_steps), "backward": bwd * steps}
+    if mm_launches != want:
+        raise AssertionError(f"{phase}: tensor-core products {mm_launches} over {steps} "
+                             f"training and {eval_steps} evaluation steps, expected {want}")
     if extra is not None:
         n_eval = int((test.groupby("SessionId").size() - 1).sum())
         details = {**extra, "eval_events": n_eval, "eval_seconds": t_eval,
@@ -973,7 +1282,8 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
               "seconds": stats["seconds"],
               "events_per_s": stats["events"] / stats["seconds"],
               "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
-              "launches": by_mode, "graph": graph, **schedules, **details,
+              "launches": by_mode, "mm_launches": mm_launches, "eval_steps": eval_steps,
+              "graph": graph, **schedules, **details,
               "card": smi_line}
     emit(record)
     return record, model
@@ -1254,14 +1564,30 @@ def learn_sr_cfg():
                          dropout_p_embed=0.0, seed=11)
 
 
+LEARN_SR_SEEDS = tuple(range(10))  # learn_sr's seeds beside its config's own
+
+
 def phase_learn_sr(smi_line):
-    """adam + SR state (K3 on E and Wy, twice per step): recall@1 >= 0.9."""
-    rec, _ = _train("learn_sr", learn_sr_cfg(), markov(800), markov(100, seed=5), smi_line,
-                 {"K3": 2})
+    """adam + SR state (K3 on E and Wy, twice per step) at the config's own
+    seed and at ``LEARN_SR_SEEDS``: the mean recall@1 >= 0.9. A single seed
+    is no bar for this configuration: the order of the float32 sums in its
+    products alone moves one seed's recall@1 by up to 0.16 (ROADMAP S3,
+    ``scripts/product_order_spread_torch.py --learn``). Returns the own
+    seed's record."""
+    train, test = markov(800), markov(100, seed=5)
+    rec, _ = _train("learn_sr", learn_sr_cfg(), train, test, smi_line, {"K3": 2})
     if rec["tables"]["E"][1] != 12 or rec["opt_state"]["E"]["acc2"] != "bfloat16":
         raise AssertionError(f"unexpected E table / state {rec['tables']} {rec['opt_state']}")
-    if rec["recall"]["@1"] < 0.9:
-        raise AssertionError(f"adam + bfloat16_sr markov recall@1 {rec['recall']} < 0.9")
+    recall = {learn_sr_cfg().seed: rec["recall"]["@1"]}
+    for seed in LEARN_SR_SEEDS:
+        cfg = learn_sr_cfg()
+        cfg.seed = seed
+        recall[seed] = _train("learn_sr_seed", cfg, train, test, smi_line,
+                              {"K3": 2})[0]["recall"]["@1"]
+    mean = float(np.mean(list(recall.values())))
+    emit({"phase": "learn_sr_seeds", "recall1": recall, "mean": mean, "card": smi_line})
+    if mean < 0.9:
+        raise AssertionError(f"adam + bfloat16_sr markov recall@1 mean {mean} < 0.9: {recall}")
     return rec
 
 
@@ -3649,6 +3975,11 @@ KERNEL_TABLE = {"K1": ("K1", 419, "train"), "K2": ("K2", 484, "train_sr"),
                 "K3": ("K3", 808, "train_adam_sr"), "K4": ("K4", 248, "train_onehot"),
                 "K1 onehot Wy": ("K1", 419, "train_onehot"),
                 "K1 rees46 Wy": ("K1", 419, "published_rees46")}
+# the product's kernels-line entries: mixed_mm shape -> (phase whose
+# launches count, its path)
+MIXED_MM_TABLE = {"flagship scores": ("train", "train: flagship fit + evaluate"),
+                  "rees46 evaluation": ("published_rees46",
+                                        "published: rees46 fit + evaluate")}
 # P1, P2 -> the TPU kernel; their launches are the proto phase's
 PROTO_TABLE = {"P1": "scripts/proto_merged_kernel.py:31",
                "P2": "scripts/proto_v3_kernel.py:63"}
@@ -3671,6 +4002,7 @@ def main() -> int:
     phase_build()
     phase_kernel()
     timing = phase_kernel_timing()
+    mm = phase_mixed_mm(smi_line)
     phase_reference()
     paths = {}
     paths["train"], flagship = phase_train(smi_line)
@@ -3742,6 +4074,17 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     } for kernel, replaces in PROTO_TABLE.items()]
+    kernels += [{
+        "name": f"mixed_mm[{shape}]",
+        "route": "cuda",
+        "backend": "cuBLAS bf16 tensor-core GEMM (aten::mm.dtype), no kernel source",
+        "source": "gru4rec_tpu_torch/ops/mixed_mm.py",
+        "replaces": "gru4rec_tpu/models/gru.py:143",
+        "path": path,
+        "launches": sum(paths[phase]["mm_launches"].values()),
+        **{k: mm[shape][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+    } for shape, (phase, path) in MIXED_MM_TABLE.items()]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ import torch
 
 from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.ops.activations import get_activation
+from gru4rec_tpu_torch.ops.mixed_mm import mixed_mm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -143,24 +144,17 @@ def _dropout(x, p, gen, lanes=None):
 def make_mm(cfg: GRU4RecConfig):
     """Matmul in ``compute_dtype`` with float32 accumulation — the JAX
     package's ``dot(a.astype(cdt), b.astype(cdt),
-    preferred_element_type=f32)``. A bfloat16 torch matmul would return
-    bfloat16 (one more rounding than JAX), so the operands are rounded to
-    the compute dtype, widened back, and multiplied in float32: the products
-    of two bfloat16 values are exact in float32. Float32 products must run
-    in full float32 on the card (TF32 off, which ``GRU4Rec`` sets); weights
-    cast to bfloat16 for serving (``GRU4Rec.cast_for_serving``) are widened
-    to float32 first, as JAX's ``astype(compute_dtype)`` does."""
-    cdt = torch_dtype(cfg.compute_dtype)
-    if cdt == torch.float32:
+    preferred_element_type=f32)``. bfloat16 is :func:`ops.mixed_mm.mixed_mm`:
+    the card's bf16 tensor cores, forward and backward, on CUDA tensors, and
+    on the CPU the operands rounded to bfloat16, widened back and multiplied
+    in float32. Float32 products run in full float32 on the card (TF32 off,
+    which ``GRU4Rec`` sets), as JAX's ``Precision.HIGHEST`` asks."""
+    if torch_dtype(cfg.compute_dtype) == torch.float32:
         def mm32(a, b):
             return torch.matmul(a.float(), b.float())
 
         return mm32
-
-    def mm(a, b):
-        return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
-
-    return mm
+    return mixed_mm
 
 
 def gru_cell(vec, H, Wrz, Wh, hidden_act, hdim, mm=torch.matmul):

@@ -71,9 +71,11 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA device requested but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run on the CPU")
         # float32 matmuls in full float32, as the JAX package's
-        # compute_dtype="float32" asks of XLA (Precision.HIGHEST)
+        # compute_dtype="float32" asks of XLA (Precision.HIGHEST); bfloat16
+        # products summed in float32, as its preferred_element_type=f32 does
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
 
 

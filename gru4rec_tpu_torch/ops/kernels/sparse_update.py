@@ -18,8 +18,8 @@ One kernel serves the four TPU kernels, by mode:
 * K4 ``_fused_update``, the v2 grid (non-SR, any width): other widths.
 
 ``launches_by_mode`` counts the launches of each mode. A captured CUDA
-graph replays a launch without calling the wrapper again, so the graph
-runner of ``train/step.py`` adds the captured step's tally on each replay.
+graph replays a launch without calling the wrapper again, so
+``utils/cuda_graph.py`` adds the captured call's tally on each replay.
 
 A call is one device operation: the kernel takes the raw int32 or int64
 indices as they are (no sort, cast, fill or scratch tensor) and dedups them

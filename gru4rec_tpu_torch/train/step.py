@@ -38,7 +38,6 @@ import torch
 
 from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.models import gru
-from gru4rec_tpu_torch.ops.kernels import sparse_update
 from gru4rec_tpu_torch.ops.losses import get_loss
 from gru4rec_tpu_torch.ops.sr import MASK32, step_seeds
 from gru4rec_tpu_torch.ops.sampling import draw_negatives
@@ -181,10 +180,8 @@ class _StepGraph:
     stream, the capture and the warm-up count are ``utils/cuda_graph.py``'s,
     which every graph of the port shares.
 
-    The row-sparse kernel's wrapper counts its calls in
-    ``sparse_update.launches_by_mode``; the capture's tally (``tally``, by
-    mode) is taken back, since the capture launched nothing, and added
-    again on each replay, so the counters count kernel runs.
+    The launch counters count replays (``utils/cuda_graph.py``'s
+    ``CountedGraph``; the captured step's launches: ``graph.tally``).
     """
 
     def __init__(self, step_fn, width: int):
@@ -194,7 +191,6 @@ class _StepGraph:
         self.graph = None
         self.warm = 0     # eager steps before the capture
         self.replays = 0  # replayed steps
-        self.tally = {}   # launches by mode of one replay
         self.captured = None  # (generator, data_ptr of each state tensor)
         self.pool_bytes = None  # device memory the capture reserved
 
@@ -220,8 +216,6 @@ class _StepGraph:
         self.slot.copy_(row)
         self.graph.replay()
         self.replays += 1
-        for mode, n in self.tally.items():
-            sparse_update.launches_by_mode[mode] += n
 
     def end(self) -> torch.Tensor:
         return self.loss.clone()
@@ -231,14 +225,9 @@ class _StepGraph:
         self.warm += 1
 
     def _capture(self, state, row, logp0) -> None:
-        before = dict(sparse_update.launches_by_mode)
         self.graph, self.pool_bytes, _ = capture(
             lambda: self.loss.add_(self.step_fn(state, self.slot, logp0)), self.stream,
             [state.gen])
-        counts = sparse_update.launches_by_mode
-        self.tally = {k: n - before[k] for k, n in counts.items() if n != before[k]}
-        for k, n in self.tally.items():
-            counts[k] -= n
         self.captured = (state.gen, [t.data_ptr() for t in _state_tensors(state, logp0)])
 
 

@@ -11,7 +11,8 @@ keeps the eager code as the graph's plain version. They share:
 * :func:`run_on`, a call on that stream ordered between the current
   stream's work before and after it;
 * :func:`capture`, which captures a call with the garbage collector off
-  and measures the bytes the graph's private pool reserved;
+  and measures the bytes the graph's private pool reserved, and returns a
+  :class:`CountedGraph`, whose replays keep the launch counters true;
 * :func:`binding`, the (pointer, shape, dtype) of every tensor a graph
   reads or writes outside its pool: a graph replays only for the binding
   it was captured on.
@@ -61,14 +62,43 @@ def run_on(stream: torch.cuda.Stream, fn):
     return out
 
 
+def launch_counters() -> Dict[str, Dict[str, int]]:
+    """The launch counters of the port's device routes, by module: each
+    wrapper adds one where it issues its kernel (``launches_by_mode``)."""
+    from gru4rec_tpu_torch.ops import mixed_mm
+    from gru4rec_tpu_torch.ops.kernels import sparse_update
+
+    return {"sparse_update": sparse_update.launches_by_mode,
+            "mixed_mm": mixed_mm.launches_by_mode}
+
+
+class CountedGraph:
+    """A captured graph and ``tally``, the launches its capture recorded
+    ({counter: {mode: n}}, :func:`launch_counters`). The capture ran none
+    of them and a replay runs them without calling the wrappers, so
+    :func:`capture` takes the tally back from the counters and every
+    :meth:`replay` adds it again: the counters count device runs."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, tally):
+        self.graph = graph
+        self.tally = tally
+
+    def replay(self) -> None:
+        self.graph.replay()
+        counters = launch_counters()
+        for name, modes in self.tally.items():
+            for mode, n in modes.items():
+                counters[name][mode] += n
+
+
 def capture(fn, stream: torch.cuda.Stream, generators=()):
     """Capture ``fn()`` on ``stream`` (capture runs nothing): ``(graph,
-    pool_bytes, fn's result)``. ``generators`` are registered with the
-    graph, so that every replay draws what the eager call would draw next.
-    A graph destroyed while another is being captured invalidates that
-    capture (a graph that is cyclic garbage dies when the collector runs),
-    so the collector is off until the capture ends. A failed capture
-    raises."""
+    pool_bytes, fn's result)``, the graph a :class:`CountedGraph`.
+    ``generators`` are registered with the graph, so that every replay
+    draws what the eager call would draw next. A graph destroyed while
+    another is being captured invalidates that capture (a graph that is
+    cyclic garbage dies when the collector runs), so the collector is off
+    until the capture ends. A failed capture raises."""
     dev = stream.device
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
@@ -76,6 +106,8 @@ def capture(fn, stream: torch.cuda.Stream, generators=()):
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
+    counters = launch_counters()
+    before = {name: dict(c) for name, c in counters.items()}
     collecting = gc.isenabled()
     gc.disable()
     try:
@@ -84,7 +116,14 @@ def capture(fn, stream: torch.cuda.Stream, generators=()):
     finally:
         if collecting:
             gc.enable()
-    return graph, torch.cuda.memory_reserved(dev) - reserved, out
+    tally = {}
+    for name, c in counters.items():
+        recorded = {m: n - before[name][m] for m, n in c.items() if n != before[name][m]}
+        for m, n in recorded.items():
+            c[m] -= n
+        if recorded:
+            tally[name] = recorded
+    return CountedGraph(graph, tally), torch.cuda.memory_reserved(dev) - reserved, out
 
 
 def leaves(*trees):

@@ -355,7 +355,7 @@ def test_cuda_counters_count_replays(monkeypatch):
     live = sum(int(schedule(c)[2].any(axis=1).sum()) for c in range(3))
     assert live > tstep.WARMUP_STEPS + 1 and runner.graph is not None
     assert runner.warm == tstep.WARMUP_STEPS and runner.warm + runner.replays == live
-    assert runner.tally == {"K1": 1, "K4": 1}
+    assert runner.graph.tally == {"sparse_update": {"K1": 1, "K4": 1}}
     assert sparse_update.launches_by_mode == {"K1": live, "K2": 0, "K3": 0, "K4": live}
     assert captured == {48: 1, 128: 1}
     assert {k: eager[k] + captured[k] * runner.replays for k in eager} == {48: live,
