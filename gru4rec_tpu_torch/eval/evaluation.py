@@ -60,6 +60,7 @@ from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_lay
 from gru4rec_tpu_torch.train.step import StackLayout
 from gru4rec_tpu_torch.utils.cuda_graph import (WARMUP_STEPS, binding, capture,
                                                 capture_stream, run_on)
+from gru4rec_tpu_torch.utils.profiling import span
 
 # tiebreaking on a mesh: each model shard dithers from its own generator,
 # seeded ``seed + 1 + mi * SHARD_SEED_STRIDE`` (shard 0: the single-device seed)
@@ -307,7 +308,10 @@ def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time
     frame's ``id``, its length, its first and last rows' three columns, the
     batch and the three column names (an ``id`` alone could be recycled,
     and an in-place edit keeps ``id`` and length); the frame is pinned in
-    the entry, so its ``id`` cannot be reused while the dict holds it."""
+    the entry, so its ``id`` cannot be reused while the dict holds it.
+
+    A miss builds it in the spans ``gru4rec.evaluate.schedule.join``,
+    ``.sort``, ``.offsets`` and ``.walk``."""
     key = None
     if sched_cache is not None:
         cols = (session_key, item_key, time_key)
@@ -320,17 +324,21 @@ def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time
         if hit is not None:
             return hit[1]
     itemidmap = gru_model.itemidmap
-    data = pd.merge(
-        test_data,
-        pd.DataFrame({"ItemIdx": itemidmap.values, item_key: itemidmap.index}),
-        on=item_key,
-        how="inner",
-    )
-    data.sort_values([session_key, time_key, item_key], inplace=True)
-    offsets = compute_offset(data, session_key)
-    order = np.arange(len(offsets) - 1, dtype=np.int64)
-    sched = build_schedule(data["ItemIdx"].values.astype(np.int32), offsets, order,
-                           batch_size)
+    with span("gru4rec.evaluate.schedule.join"):
+        data = pd.merge(
+            test_data,
+            pd.DataFrame({"ItemIdx": itemidmap.values, item_key: itemidmap.index}),
+            on=item_key,
+            how="inner",
+        )
+    with span("gru4rec.evaluate.schedule.sort"):
+        data.sort_values([session_key, time_key, item_key], inplace=True)
+    with span("gru4rec.evaluate.schedule.offsets"):
+        offsets = compute_offset(data, session_key)
+    with span("gru4rec.evaluate.schedule.walk"):
+        order = np.arange(len(offsets) - 1, dtype=np.int64)
+        sched = build_schedule(data["ItemIdx"].values.astype(np.int32), offsets, order,
+                               batch_size)
     if key is not None:
         sched_cache[key] = (test_data, sched)
     return sched
@@ -349,10 +357,11 @@ class _EvalGraph:
     reset``), and ``item_idx``, the subset's item indices. :meth:`run`
     zeroes the state in place and seeds ``gen``; the first
     ``WARMUP_STEPS`` steps the object ever runs are eager, on the capture
-    stream, the next is captured, and every step from then on copies its
-    row into the slot and replays (a host copy and a graph launch per
-    step). ``gen`` is registered with the graph, so each replay draws the
-    tiebreaking dither the eager step would. The graph reads the parameters
+    stream (the span ``gru4rec.evaluate.warmup``), the next is captured, and
+    every step from then on copies its row into the slot and replays (a
+    host copy and a graph launch per step; the loop is the span
+    ``gru4rec.evaluate.replay``). ``gen`` is registered with the graph, so
+    each replay draws the tiebreaking dither the eager step would. The graph reads the parameters
     it was captured on: the caller keys it on their binding
     (:func:`evaluate`). The capture's pool holds the step's intermediates,
     among them the (batch, n_items) score matrices; ``pool_bytes`` is its
@@ -383,17 +392,23 @@ class _EvalGraph:
         self.gen.manual_seed(seed)
         if item_idx is not None:
             self.item_idx.copy_(item_idx)
-        for t in range(stack.shape[0]):
-            if self.graph is None:
-                if self.warm < WARMUP_STEPS:
-                    run_on(self.stream, lambda: self._step(params, stack[t]))
-                    self.warm += 1
-                    continue
-                self.graph, self.pool_bytes, _ = capture(
-                    lambda: self._step(params, self.slot), self.stream, [self.gen])
-            self.slot.copy_(stack[t])
-            self.graph.replay()
-            self.replays += 1
+        T, t = stack.shape[0], 0
+        if self.graph is None:
+            if self.warm < WARMUP_STEPS:
+                with span("gru4rec.evaluate.warmup"):
+                    while self.warm < WARMUP_STEPS and t < T:
+                        run_on(self.stream, lambda: self._step(params, stack[t]))
+                        self.warm += 1
+                        t += 1
+            if t == T:
+                return self.rec, self.mrr
+            self.graph, self.pool_bytes, _ = capture(
+                lambda: self._step(params, self.slot), self.stream, [self.gen])
+        with span("gru4rec.evaluate.replay"):
+            for i in range(t, T):
+                self.slot.copy_(stack[i])
+                self.graph.replay()
+        self.replays += T - t
         return self.rec, self.mrr
 
     def _step(self, params, row):
@@ -430,97 +445,109 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     it returns. ``_sched_cache`` memoizes the schedule
     (:func:`_eval_schedule`).
 
+    The call is the span ``gru4rec.evaluate``, with the children
+    ``gru4rec.evaluate.schedule`` (hit or miss), ``.upload``, the graph's
+    ``.warmup``, ``gru4rec.graph.capture`` and ``.replay`` (or the eager
+    loop, ``.steps``), ``.fetch`` and, for a standalone graph, ``.release``.
+
     ``mesh`` (``parallel.make_mesh``) evaluates on every rank of the mesh
     (module doc), which must all call it; ``batch_size`` is rounded down to
     a multiple of the data axis, as in JAX. The canonical parameters are
     sharded for the call, or ``_shards`` (a rank's live training shards,
     in-fit validation) are taken as they are. Every rank returns the
     metrics. Tiebreaking dithers each model shard from its own generator."""
-    if mesh is not None:
-        check_mesh(mesh)
-        nd = mesh.shape["data"]
-        if batch_size % nd:
-            # metrics average per event, so the lane count does not change them
-            adj = max(nd, batch_size - batch_size % nd)
-            print(f"evaluate: batch_size {batch_size} -> {adj} "
-                  f"(must divide the {nd}-wide data axis)")
-            batch_size = adj
-    if gru_model.error_during_train:
-        raise Exception("Training ended with an error; model is unusable.")
-    cutoffs = list(cut_off) if isinstance(cut_off, (list, tuple)) else [cut_off]
-    print("Measuring Recall@{} and MRR@{}".format(
-        ",".join(str(c) for c in cutoffs), ",".join(str(c) for c in cutoffs)))
-    cfg = gru_model.config
-    if mesh is None:
-        params = gru_model._serving_params()
-    elif _shards is None:
-        detect_scratch_layout(gru_model.params, gru_model.n_items, cfg, mesh)
-        params = shard_params(gru_model.params, cfg, mesh)
-    else:
-        params = _shards
-    dev = params["Wy"].device
-    sched = _eval_schedule(gru_model, test_data, batch_size, session_key, item_key,
-                           time_key, _sched_cache)
-    n = float(sched.n_events)
-    if n == 0:
-        raise ValueError(
-            "test set produced no evaluable events: every session has fewer "
-            "than two events after inner-joining items to the training "
-            "vocabulary"
-        )
-    items_subset = items is not None
-    item_idx = None
-    if items_subset:
-        item_idx = torch.from_numpy(
-            gru_model.itemidmap[items].values.astype(np.int32)).to(dev)
-    layout = StackLayout(batch_size, 0)
-    # the whole schedule in one upload
-    stack = layout.pack(sched.in_idx, sched.out_idx, sched.valid, sched.reset, None, None,
-                        dev)
-    seed = cfg.seed + 1
-    if mesh is None:
-        step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
-        lanes = batch_size
-        capturable = dev.type == "cuda"
-    else:
-        step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh, batch_size,
-                                   items_subset)
-        seed += mesh.mi * SHARD_SEED_STRIDE
-        lanes = mesh.lanes(batch_size)[1]
-        capturable = mesh.capturable
-    # every rank of a mesh has the same schedule, so all decide alike
-    graphed = capturable and not _eager and sched.n_steps > WARMUP_STEPS
-    if graphed:
-        key = (json.dumps(cfg.to_dict(), sort_keys=True, default=str), gru_model.n_items,
-               tuple(int(c) for c in cutoffs), mode, batch_size, items_subset,
-               None if item_idx is None else len(item_idx),
-               None if mesh is None else (tuple(mesh.shape.values()), mesh.rank),
-               binding(params))
-        graphs = {} if _graphs is None else _graphs
-        if key not in graphs:
-            graphs[key] = _EvalGraph(step, cfg, batch_size, lanes, len(cutoffs),
-                                     None if item_idx is None else len(item_idx), dev)
-        rec, mrr = graphs[key].run(params, stack, seed, item_idx)
-    else:
-        H = gru.init_hidden(cfg, lanes, dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
-        mrr = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
-        for t in range(sched.n_steps):
-            in_idx, out_idx, valid, reset, _, _ = layout.split(stack[t])
-            step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen, item_idx)
-    combo = torch.cat([rec, mrr])
-    if mesh is not None:
-        mesh.all_reduce(combo, "data")
-    combo = combo.cpu().numpy()
-    if graphed and _graphs is None:
-        # a standalone call gives its graph's pool back to the device
-        del graphs, rec, mrr
-        torch.cuda.empty_cache()
-    k = len(cutoffs)
-    return ([float(r) / n for r in combo[:k]],
-            [float(m) / n for m in combo[k:2 * k]])
+    with span("gru4rec.evaluate"):
+        if mesh is not None:
+            check_mesh(mesh)
+            nd = mesh.shape["data"]
+            if batch_size % nd:
+                # metrics average per event, so the lane count does not change them
+                adj = max(nd, batch_size - batch_size % nd)
+                print(f"evaluate: batch_size {batch_size} -> {adj} "
+                      f"(must divide the {nd}-wide data axis)")
+                batch_size = adj
+        if gru_model.error_during_train:
+            raise Exception("Training ended with an error; model is unusable.")
+        cutoffs = list(cut_off) if isinstance(cut_off, (list, tuple)) else [cut_off]
+        print("Measuring Recall@{} and MRR@{}".format(
+            ",".join(str(c) for c in cutoffs), ",".join(str(c) for c in cutoffs)))
+        cfg = gru_model.config
+        if mesh is None:
+            params = gru_model._serving_params()
+        elif _shards is None:
+            detect_scratch_layout(gru_model.params, gru_model.n_items, cfg, mesh)
+            params = shard_params(gru_model.params, cfg, mesh)
+        else:
+            params = _shards
+        dev = params["Wy"].device
+        with span("gru4rec.evaluate.schedule"):
+            sched = _eval_schedule(gru_model, test_data, batch_size, session_key, item_key,
+                                   time_key, _sched_cache)
+        n = float(sched.n_events)
+        if n == 0:
+            raise ValueError(
+                "test set produced no evaluable events: every session has fewer "
+                "than two events after inner-joining items to the training "
+                "vocabulary"
+            )
+        items_subset = items is not None
+        item_idx = None
+        layout = StackLayout(batch_size, 0)
+        with span("gru4rec.evaluate.upload"):
+            if items_subset:
+                item_idx = torch.from_numpy(
+                    gru_model.itemidmap[items].values.astype(np.int32)).to(dev)
+            # the whole schedule in one upload
+            stack = layout.pack(sched.in_idx, sched.out_idx, sched.valid, sched.reset, None,
+                                None, dev)
+        seed = cfg.seed + 1
+        if mesh is None:
+            step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
+            lanes = batch_size
+            capturable = dev.type == "cuda"
+        else:
+            step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh,
+                                       batch_size, items_subset)
+            seed += mesh.mi * SHARD_SEED_STRIDE
+            lanes = mesh.lanes(batch_size)[1]
+            capturable = mesh.capturable
+        # every rank of a mesh has the same schedule, so all decide alike
+        graphed = capturable and not _eager and sched.n_steps > WARMUP_STEPS
+        if graphed:
+            key = (json.dumps(cfg.to_dict(), sort_keys=True, default=str),
+                   gru_model.n_items, tuple(int(c) for c in cutoffs), mode, batch_size,
+                   items_subset,
+                   None if item_idx is None else len(item_idx),
+                   None if mesh is None else (tuple(mesh.shape.values()), mesh.rank),
+                   binding(params))
+            graphs = {} if _graphs is None else _graphs
+            if key not in graphs:
+                graphs[key] = _EvalGraph(step, cfg, batch_size, lanes, len(cutoffs),
+                                         None if item_idx is None else len(item_idx), dev)
+            rec, mrr = graphs[key].run(params, stack, seed, item_idx)
+        else:
+            H = gru.init_hidden(cfg, lanes, dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
+            mrr = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
+            with span("gru4rec.evaluate.steps"):
+                for t in range(sched.n_steps):
+                    in_idx, out_idx, valid, reset, _, _ = layout.split(stack[t])
+                    step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen, item_idx)
+        combo = torch.cat([rec, mrr])
+        if mesh is not None:
+            mesh.all_reduce(combo, "data")
+        with span("gru4rec.evaluate.fetch"):
+            combo = combo.cpu().numpy()
+        if graphed and _graphs is None:
+            # a standalone call gives its graph's pool back to the device
+            with span("gru4rec.evaluate.release"):
+                del graphs, rec, mrr
+                torch.cuda.empty_cache()
+        k = len(cutoffs)
+        return ([float(r) / n for r in combo[:k]],
+                [float(m) / n for m in combo[k:2 * k]])
 
 
 # API-parity alias with the reference module name (evaluation.evaluate_gpu).

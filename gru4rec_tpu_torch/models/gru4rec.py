@@ -56,6 +56,7 @@ from gru4rec_tpu_torch.train.step import (TrainState, init_opt_state, init_train
                                           make_chunk_fn, make_generator)
 from gru4rec_tpu_torch.utils.cuda_graph import binding, capture, capture_stream, run_on
 from gru4rec_tpu_torch.utils.logging import get_logger
+from gru4rec_tpu_torch.utils.profiling import Pace, span
 
 # Eager calls on the capture stream before a serving call is captured.
 SERVE_WARMUP_CALLS = 1
@@ -147,13 +148,17 @@ class _ServeGraph:
         B = self.batch
         if self.graph is None:
             if self.warm < SERVE_WARMUP_CALLS:
-                x = inputs.to(self.slot.device)
+                with span("gru4rec.serve.upload"):
+                    x = inputs.to(self.slot.device)
                 self.warm += 1
-                return run_on(self.stream, lambda: self.fn(x[:B], x[B:]))
+                with span("gru4rec.serve.step"):
+                    return run_on(self.stream, lambda: self.fn(x[:B], x[B:]))
             self.graph, self.pool_bytes, self.out = capture(
                 lambda: self.fn(self.slot[:B], self.slot[B:]), self.stream)
-        self.slot.copy_(inputs)
-        self.graph.replay()
+        with span("gru4rec.serve.upload"):
+            self.slot.copy_(inputs)
+        with span("gru4rec.serve.replay"):
+            self.graph.replay()
         self.replays += 1
         return self.out
 
@@ -214,8 +219,10 @@ class GRU4Rec:
 
         ``sample_store``/``store_type`` are accepted for API parity;
         negatives are drawn on the device, one block per chunk of
-        ``chunk_size`` steps. Per-epoch ``{loss, seconds, steps, events}``
-        go to ``self.epoch_stats``.
+        ``chunk_size`` steps. Per-epoch ``{loss, seconds, steps, events,
+        host_s, device_s, behind}`` go to ``self.epoch_stats`` and the JSONL
+        ``epoch`` event: the last three are the epoch's pace
+        (``utils/profiling.py::Pace``), counted in every run.
 
         * ``retrain=True`` continues training a fitted (or loaded) model on
           new data, growing the item tables for unseen items.
@@ -258,7 +265,7 @@ class GRU4Rec:
             self._serve_graphs.clear()  # their pools, while training runs
         self._completed_epochs = 0  # resume= overrides with the saved epoch
         self.error_during_train = False
-        self.epoch_stats = []  # per-epoch {loss, seconds, steps, events}
+        self.epoch_stats = []  # per-epoch {loss, seconds, steps, events, pace}
         self.valid_stats = []  # per-eval {epoch, recall, mrr}
         best_metric, best_params, stale = -np.inf, None, 0
         logger = get_logger()
@@ -365,22 +372,24 @@ class GRU4Rec:
             # buffers (train/step.py)
             for h in state.H:
                 h.zero_()
-            if cfg.train_random_order:
-                # each epoch's permutation is a pure function of (seed,
-                # epoch), so a resumed run replays the orders of an
-                # uninterrupted one
-                order = np.random.default_rng(
-                    (cfg.seed, epoch)).permutation(len(offsets) - 1)
-                sched = build_schedule(data_items, offsets, order, cfg.batch_size,
-                                       require_two_lanes=(cfg.n_sample == 0))
-            elif sched is None:
-                # deterministic session order => the same schedule every epoch
-                sched = build_schedule(data_items, offsets, base_order,
-                                       cfg.batch_size,
-                                       require_two_lanes=(cfg.n_sample == 0))
+            with span("gru4rec.fit.schedule"):
+                if cfg.train_random_order:
+                    # each epoch's permutation is a pure function of (seed,
+                    # epoch), so a resumed run replays the orders of an
+                    # uninterrupted one
+                    order = np.random.default_rng(
+                        (cfg.seed, epoch)).permutation(len(offsets) - 1)
+                    sched = build_schedule(data_items, offsets, order, cfg.batch_size,
+                                           require_two_lanes=(cfg.n_sample == 0))
+                elif sched is None:
+                    # deterministic session order => the same schedule every epoch
+                    sched = build_schedule(data_items, offsets, base_order,
+                                           cfg.batch_size,
+                                           require_two_lanes=(cfg.n_sample == 0))
             T = sched.n_steps
             loss_parts, total_events = [], 0
             lagged = _LaggedLoss(-(-T // C), dev)
+            pace = state.pace = Pace(dev.type == "cuda")
             for ci, t0c in enumerate(range(0, T, C)):
                 t1c = min(t0c + C, T)
                 ls, ec = chunk_fn(
@@ -393,21 +402,32 @@ class GRU4Rec:
                 # fail fast on divergence (the reference aborts per step,
                 # gru4rec.py:626-629): the sum of a chunk two dispatches
                 # behind, which never waits on the chunks in flight
-                if ci >= 2 and lagged.is_nan(ci - 2):
-                    _stop_profile(prof, profile_dir, epoch, mesh)
-                    return self._nan_abort(state, epoch, checkpoint_path, mesh, chunk=ci - 2)
-            total_loss = float(torch.stack(loss_parts).sum()) if loss_parts else 0.0
+                if ci >= 2:
+                    since = time.perf_counter()
+                    with span("gru4rec.fit.nan_check"):
+                        nan = lagged.is_nan(ci - 2)
+                    pace.add("nan_wait", since)
+                    if nan:
+                        _stop_profile(prof, profile_dir, epoch, mesh)
+                        return self._nan_abort(state, epoch, checkpoint_path, mesh,
+                                               chunk=ci - 2)
+            since = time.perf_counter()
+            with span("gru4rec.fit.loss_sync"):
+                total_loss = float(torch.stack(loss_parts).sum()) if loss_parts else 0.0
+            pace.add("loss_sync", since)
             _stop_profile(prof, profile_dir, epoch, mesh)
             avgc = total_loss / max(total_events, 1.0)
             if np.isnan(avgc):
                 return self._nan_abort(state, epoch, checkpoint_path, mesh)
             dt = time.time() - t0
+            paced = pace.read()
             self.epoch_stats.append(
-                {"loss": avgc, "seconds": dt, "steps": T, "events": total_events})
+                {"loss": avgc, "seconds": dt, "steps": T, "events": total_events, **paced})
             # cumulative across resumes: save_checkpoint() stores this
             self._completed_epochs = epoch + 1
             logger.log("epoch", epoch=epoch + 1, loss=avgc, seconds=dt, steps=T,
-                       events=total_events, mb_per_s=T / dt, e_per_s=total_events / dt)
+                       events=total_events, mb_per_s=T / dt, e_per_s=total_events / dt,
+                       **paced)
             print(
                 "Epoch{} --> loss: {:.6f} \t({:.2f}s) \t[{:.2f} mb/s | {:.0f} e/s]".format(
                     epoch + 1, avgc, dt, T / dt, total_events / dt
@@ -420,14 +440,15 @@ class GRU4Rec:
                 if mesh is None:
                     self.params = state.params
                 try:
-                    rec, mrr = evaluate(
-                        self, eval_data, cut_off=[eval_cutoff],
-                        batch_size=eval_batch_size, mode=eval_mode,
-                        session_key=session_key, item_key=item_key,
-                        time_key=time_key, mesh=mesh, _sched_cache=eval_sched_cache,
-                        _shards=None if mesh is None else state.params,
-                        _graphs=eval_graphs,
-                    )
+                    with span("gru4rec.fit.validate"):
+                        rec, mrr = evaluate(
+                            self, eval_data, cut_off=[eval_cutoff],
+                            batch_size=eval_batch_size, mode=eval_mode,
+                            session_key=session_key, item_key=item_key,
+                            time_key=time_key, mesh=mesh, _sched_cache=eval_sched_cache,
+                            _shards=None if mesh is None else state.params,
+                            _graphs=eval_graphs,
+                        )
                 finally:
                     self.params = prev_params
                 metric = rec[0] if eval_metric == "recall" else mrr[0]
@@ -455,13 +476,16 @@ class GRU4Rec:
                         break
             if checkpoint_every and checkpoint_path and (epoch + 1) % checkpoint_every == 0:
                 # checkpoints hold the canonical layout; resume shards it again
-                ckpt_state = state if mesh is None else unshard_train_state(state, cfg, mesh)
-                self._train_state = ckpt_state
-                self.params = ckpt_state.params
-                save_train_checkpoint(self, ckpt_state, epoch + 1, checkpoint_path)
+                with span("gru4rec.fit.checkpoint"):
+                    ckpt_state = (state if mesh is None
+                                  else unshard_train_state(state, cfg, mesh))
+                    self._train_state = ckpt_state
+                    self.params = ckpt_state.params
+                    save_train_checkpoint(self, ckpt_state, epoch + 1, checkpoint_path)
                 if _is_primary_process():
                     print(f"Checkpoint saved to {checkpoint_path} "
                           f"(epoch {epoch + 1})")
+        state.pace = None
         if mesh is not None:
             state = unshard_train_state(state, cfg, mesh)
         if best_params is not None:
@@ -686,10 +710,11 @@ class GRU4Rec:
 
             graph = _ServeGraph(fn, len(H[0]), self.device, bound)
             self._serve_graphs[key] = graph
-        keep = self._keep_mask(session_ids)
-        inputs = np.concatenate([self._item_index_array(input_item_ids),
-                                 keep.astype(np.int64)])
-        return graph(torch.from_numpy(inputs))
+        with span("gru4rec.serve.keep"):
+            keep = self._keep_mask(session_ids)
+        with span("gru4rec.serve.lookup"):
+            idx = self._item_index_array(input_item_ids)
+        return graph(torch.from_numpy(np.concatenate([idx, keep.astype(np.int64)])))
 
     def predict_next_batch(self, session_ids, input_item_ids,
                            predict_for_item_ids=None, batch: int = 100):
@@ -736,6 +761,12 @@ class GRU4Rec:
         (``_ServeGraph``: the lane reset, the step and ``torch.topk``), as
         JAX compiles ``topk_step`` per (batch, k).
 
+        The call is the span ``gru4rec.serve``, with the children
+        ``gru4rec.serve.keep`` (the keep mask, or the lane reset where the
+        call runs eagerly), ``.lookup`` (the id lookup), ``.upload``,
+        ``.replay`` (or, eagerly and at the graph's warm-up call, ``.step``),
+        ``.fetch`` and ``.idmap`` (the ids back to the catalog's).
+
         ``mesh`` (``parallel.make_mesh``) serves on every rank of the mesh,
         which all make the call: each rank scores its block of the lanes
         against its row-shard of the catalog, and the per-shard top-k
@@ -750,42 +781,50 @@ class GRU4Rec:
             raise Exception("Training ended with an error; model is unusable.")
         if mesh is not None:
             check_mesh(mesh)
-        k = min(int(k), self.n_items)
-        self._ensure_lanes(batch)
-        if self._graphed(mesh):
-            if mesh is None:
-                key, params = ("topk", batch, k), self._serving_params()
+        with span("gru4rec.serve"):
+            k = min(int(k), self.n_items)
+            self._ensure_lanes(batch)
+            if self._graphed(mesh):
+                if mesh is None:
+                    key, params = ("topk", batch, k), self._serving_params()
 
-                def make_call():
-                    return self._serving_call(lambda y: torch.topk(y, k, dim=1, sorted=True))
-            else:
-                for old in [key for key in self._serve_graphs
-                            if len(key) == 4 and key[3] is not mesh]:
-                    del self._serve_graphs[old]
-                key, params = ("topk", batch, k, mesh), self._mesh_shards(mesh)
+                    def make_call():
+                        return self._serving_call(
+                            lambda y: torch.topk(y, k, dim=1, sorted=True))
+                else:
+                    for old in [key for key in self._serve_graphs
+                                if len(key) == 4 and key[3] is not mesh]:
+                        del self._serve_graphs[old]
+                    key, params = ("topk", batch, k, mesh), self._mesh_shards(mesh)
 
-                def make_call():
-                    return self._mesh_topk_call(
-                        make_dist_topk_fn(self.config, self.n_items, k, mesh), batch, mesh)
-            scores, idx = self._serve_graph(key, session_ids, input_item_ids, params,
-                                            make_call)
-        else:
-            self._reset_changed_lanes(session_ids)
-            in_idx = self._item_indices(input_item_ids)
-            if mesh is not None:
-                scores, idx = self._predict_topk_dist(in_idx, k, batch, mesh)
+                    def make_call():
+                        return self._mesh_topk_call(
+                            make_dist_topk_fn(self.config, self.n_items, k, mesh), batch,
+                            mesh)
+                scores, idx = self._serve_graph(key, session_ids, input_item_ids, params,
+                                                make_call)
             else:
-                H_new, yhat = self._build_predict_fn(False)(self._serving_params(), self.H,
-                                                            in_idx)
-                for h, hn in zip(self.H, H_new):
-                    h.copy_(hn)
-                scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
-        idx = idx.cpu().numpy()
-        # Arrow-backed string indexes (pandas>=3) reject 2-D fancy indexing:
-        # take the batch x k ids flat, as objects (only those, not the whole
-        # catalog per call)
-        items = np.asarray(self.itemidmap.index[idx.ravel()], dtype=object)
-        return items.reshape(idx.shape), scores.cpu().numpy()
+                with span("gru4rec.serve.keep"):
+                    self._reset_changed_lanes(session_ids)
+                with span("gru4rec.serve.lookup"):
+                    in_idx = self._item_indices(input_item_ids)
+                with span("gru4rec.serve.step"):
+                    if mesh is not None:
+                        scores, idx = self._predict_topk_dist(in_idx, k, batch, mesh)
+                    else:
+                        H_new, yhat = self._build_predict_fn(False)(self._serving_params(),
+                                                                    self.H, in_idx)
+                        for h, hn in zip(self.H, H_new):
+                            h.copy_(hn)
+                        scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
+            with span("gru4rec.serve.fetch"):
+                idx, scores = idx.cpu().numpy(), scores.cpu().numpy()
+            with span("gru4rec.serve.idmap"):
+                # Arrow-backed string indexes (pandas>=3) reject 2-D fancy
+                # indexing: take the batch x k ids flat, as objects (only
+                # those, not the whole catalog per call)
+                items = np.asarray(self.itemidmap.index[idx.ravel()], dtype=object)
+            return items.reshape(idx.shape), scores
 
     def _serving_call(self, finish):
         """The single-device serving call for :meth:`_serve_graph`: the

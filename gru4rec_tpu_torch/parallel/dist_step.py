@@ -61,8 +61,8 @@ from gru4rec_tpu_torch.ops.sr import step_seeds
 from gru4rec_tpu_torch.parallel.mesh import Mesh, local_block, param_specs, state_specs
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
 from gru4rec_tpu_torch.train.step import (DENSE_GROUPS, SR_TABLE_SALT, StackLayout,
-                                          TrainState, _StepGraph, merge_dense, split_params,
-                                          sparse_table_names)
+                                          TrainState, _EagerSteps, _StepGraph, merge_dense,
+                                          run_steps, split_params, sparse_table_names)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -289,6 +289,7 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh, _eager: boo
         return cost * Mf
 
     runner = None if _eager or not mesh.capturable else _StepGraph(step_fn, layout.width)
+    eager = _EagerSteps(step_fn)
 
     def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1, logp0,
                  neg=None, sr_seeds=None):
@@ -307,18 +308,10 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh, _eager: boo
         # the gate reads the global schedule: every rank replays or skips a
         # step together, so no rank leaves a collective unmatched
         counts = valid_c.sum(axis=1)
-        if runner is not None:
-            runner.begin(state, logp0, dev)
-        else:
-            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in range(chunk):
-            if counts[t] > 0:
-                if runner is not None:
-                    runner.step(state, stack[t], logp0)
-                else:
-                    loss_sum = loss_sum + step_fn(state, stack[t], logp0)
-            state.step += 1
-        return (loss_sum if runner is None else runner.end()), int(counts.sum())
+        loss = run_steps(eager if runner is None else runner, state, stack, counts, logp0,
+                         dev)
+        state.step += chunk
+        return loss, int(counts.sum())
 
     chunk_fn.runner = runner
     return chunk_fn

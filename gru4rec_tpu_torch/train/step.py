@@ -30,8 +30,9 @@ reproduces every seed.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from gru4rec_tpu_torch.ops.sampling import draw_negatives
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
 from gru4rec_tpu_torch.utils.cuda_graph import (WARMUP_STEPS, capture, capture_stream,
                                                 leaves, run_on)
+from gru4rec_tpu_torch.utils.profiling import Pace, span
 
 DENSE_GROUPS = ("Wx", "Wh", "Wrz", "Bh")
 # Per-table salt of the stochastic-rounding seed, keyed on state names (the
@@ -59,6 +61,9 @@ class TrainState:
     H: List[torch.Tensor]
     gen: torch.Generator  # draws negatives and dropout masks
     step: int = 0         # global step counter
+    # the epoch's pace counters (utils/profiling.py), set by fit; the chunk
+    # functions count into them when set
+    pace: Optional[Pace] = None
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -168,14 +173,14 @@ def _state_tensors(state: TrainState, logp0) -> List[torch.Tensor]:
 class _StepGraph:
     """One training step captured as a CUDA graph and replayed per step.
 
-    The first ``WARMUP_STEPS`` live steps run eagerly on the capture stream;
-    the next is captured (capture executes nothing) and every live step
-    from then on copies its stack row into the graph's input slot and
-    replays. The graph reads and writes the state's tensors in place, adds
-    the step's weighted loss to a device scalar, and draws its dropout
-    masks from ``state.gen``, registered with the graph so that every
-    replay draws the masks the eager step would (the generator's offset
-    advances by the step's draws per replay). A failed capture raises, and
+    The first ``WARMUP_STEPS`` live steps run eagerly on the capture stream
+    (the span ``gru4rec.train.warmup``); the next is captured (capture
+    executes nothing) and every live step from then on copies its stack row
+    into the graph's input slot and replays. The graph reads and writes the
+    state's tensors in place, adds the step's weighted loss to a device
+    scalar, and draws its dropout masks from ``state.gen``, registered with
+    the graph so that every replay draws the masks the eager step would
+    (the generator's offset advances by the step's draws per replay). A failed capture raises, and
     so does a chunk whose state tensors are not the ones captured. The
     stream, the capture and the warm-up count are ``utils/cuda_graph.py``'s,
     which every graph of the port shares.
@@ -207,15 +212,24 @@ class _StepGraph:
                                "chunk, or update them in place")
         self.loss.zero_()
 
-    def step(self, state: TrainState, row, logp0) -> None:
+    def run(self, state: TrainState, stack, rows, logp0) -> None:
+        """The steps ``rows`` (live row indices of ``stack``), in order."""
+        if not rows:
+            return
+        i = 0
         if self.graph is None:
             if self.warm < WARMUP_STEPS:
-                self._eager(state, row, logp0)
+                with span("gru4rec.train.warmup"):
+                    while self.warm < WARMUP_STEPS and i < len(rows):
+                        self._eager(state, stack[rows[i]], logp0)
+                        i += 1
+            if i == len(rows):
                 return
-            self._capture(state, row, logp0)
-        self.slot.copy_(row)
-        self.graph.replay()
-        self.replays += 1
+            self._capture(state, logp0)
+        for t in rows[i:]:
+            self.slot.copy_(stack[t])
+            self.graph.replay()
+        self.replays += len(rows) - i
 
     def end(self) -> torch.Tensor:
         return self.loss.clone()
@@ -224,11 +238,54 @@ class _StepGraph:
         run_on(self.stream, lambda: self.loss.add_(self.step_fn(state, row, logp0)))
         self.warm += 1
 
-    def _capture(self, state, row, logp0) -> None:
+    def _capture(self, state, logp0) -> None:
         self.graph, self.pool_bytes, _ = capture(
             lambda: self.loss.add_(self.step_fn(state, self.slot, logp0)), self.stream,
             [state.gen])
         self.captured = (state.gen, [t.data_ptr() for t in _state_tensors(state, logp0)])
+
+
+class _EagerSteps:
+    """The eager loop over a chunk's live steps, :class:`_StepGraph`'s
+    plain version, with its interface."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+        self.loss = None
+
+    def begin(self, state, logp0, device) -> None:
+        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+
+    def run(self, state, stack, rows, logp0) -> None:
+        for t in rows:
+            self.loss = self.loss + self.step_fn(state, stack[t], logp0)
+
+    def end(self) -> torch.Tensor:
+        return self.loss
+
+
+def run_steps(runner, state: TrainState, stack, counts, logp0, device) -> torch.Tensor:
+    """The live steps of a chunk (``counts`` > 0; a fully-padded step is a
+    no-op, the JAX package's ``any_valid`` gate: no update of any parameter
+    or optimizer state) by ``runner`` (:class:`_StepGraph` or
+    :class:`_EagerSteps`), in the spans ``gru4rec.train.steps`` and
+    ``gru4rec.train.loss`` (the read of the chunk's loss sum, a device
+    scalar, which it returns); counted into ``state.pace`` when set
+    (``issue``, and on a CUDA device the chunk's timing events)."""
+    rows = np.flatnonzero(counts > 0).tolist()
+    pace = state.pace
+    with span("gru4rec.train.steps"):
+        if pace is not None:
+            pace.begin_steps()
+        runner.begin(state, logp0, device)
+        runner.run(state, stack, rows[:-1], logp0)
+        if pace is not None:
+            pace.before_last_step()
+        runner.run(state, stack, rows[-1:], logp0)
+        if pace is not None:
+            pace.end_steps()
+    with span("gru4rec.train.loss"):
+        return runner.end()
 
 
 def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
@@ -252,6 +309,11 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
     first chunk on. ``_eager=True`` runs the eager loop there instead, the
     graph's plain version (``chunk_fn.runner`` is then None), as the CPU
     always does.
+
+    A call is the span ``gru4rec.train.chunk``, with the children
+    ``gru4rec.train.sample`` (the negative draw), ``.upload`` (the stack),
+    ``.steps`` and ``.loss`` (:func:`run_steps`); ``state.pace``, when set,
+    counts the host seconds of the first two.
     """
     mode = gru.input_mode(cfg)
     loss_fn = get_loss(cfg.loss, cfg.n_sample, cfg.smoothing, cfg.bpreg)
@@ -336,38 +398,38 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
         return cost.detach() * Mf
 
     runner = None if _eager else _StepGraph(step_fn, layout.width)
+    eager = _EagerSteps(step_fn)
 
     def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1,
                  logp0, neg=None, sr_seeds=None):
         chunk = in_c.shape[0]
         dev = state.params["Wy"].device
-        if n_sample > 0 and neg is None:
-            neg = draw_negatives(state.gen, samp1, chunk, n_sample, n_items,
-                                 cfg.sample_alpha, cfg.sampler)
-        seeds = None
-        if layout.seed_names:
-            seeds = sr_seeds if sr_seeds is not None else {
-                k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
-                              SR_TABLE_SALT[k]) for k in layout.seed_names}
-        # one upload per chunk; a blocking copy per step would drain the
-        # stream every step
-        stack = layout.pack(in_c, out_c, valid_c, reset_c, neg, seeds, dev)
-        counts = valid_c.sum(axis=1)
-        graphed = runner is not None and dev.type == "cuda"
-        if graphed:
-            runner.begin(state, logp0, dev)
-        else:
-            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in range(chunk):
-            # a fully-padded step is a no-op (the JAX package's any_valid
-            # gate): no update of any parameter or optimizer state
-            if counts[t] > 0:
-                if graphed:
-                    runner.step(state, stack[t], logp0)
-                else:
-                    loss_sum = loss_sum + step_fn(state, stack[t], logp0)
-            state.step += 1
-        return (runner.end() if graphed else loss_sum), int(counts.sum())
+        pace = state.pace
+        with span("gru4rec.train.chunk"):
+            if n_sample > 0 and neg is None:
+                since = time.perf_counter()
+                with span("gru4rec.train.sample"):
+                    neg = draw_negatives(state.gen, samp1, chunk, n_sample, n_items,
+                                         cfg.sample_alpha, cfg.sampler)
+                if pace is not None:
+                    pace.add("sample", since)
+            seeds = None
+            if layout.seed_names:
+                seeds = sr_seeds if sr_seeds is not None else {
+                    k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
+                                  SR_TABLE_SALT[k]) for k in layout.seed_names}
+            # one upload per chunk; a blocking copy per step would drain the
+            # stream every step
+            since = time.perf_counter()
+            with span("gru4rec.train.upload"):
+                stack = layout.pack(in_c, out_c, valid_c, reset_c, neg, seeds, dev)
+            if pace is not None:
+                pace.add("upload", since)
+            counts = valid_c.sum(axis=1)
+            graphed = runner is not None and dev.type == "cuda"
+            loss = run_steps(runner if graphed else eager, state, stack, counts, logp0, dev)
+            state.step += chunk
+            return loss, int(counts.sum())
 
     chunk_fn.runner = runner
     return chunk_fn

@@ -12,7 +12,8 @@ keeps the eager code as the graph's plain version. They share:
   stream's work before and after it;
 * :func:`capture`, which captures a call with the garbage collector off
   and measures the bytes the graph's private pool reserved, and returns a
-  :class:`CountedGraph`, whose replays keep the launch counters true;
+  :class:`CountedGraph`, whose replays keep the launch counters true (the
+  span ``gru4rec.graph.capture``);
 * :func:`binding`, the (pointer, shape, dtype) of every tensor a graph
   reads or writes outside its pool: a graph replays only for the binding
   it was captured on.
@@ -30,6 +31,8 @@ import gc
 from typing import Dict
 
 import torch
+
+from gru4rec_tpu_torch.utils.profiling import span
 
 # Eager steps on the capture stream before a step is captured (PyTorch sets
 # up cuBLAS workspaces and autograd's streams on first use); they are real
@@ -82,13 +85,15 @@ class CountedGraph:
     def __init__(self, graph: torch.cuda.CUDAGraph, tally):
         self.graph = graph
         self.tally = tally
+        # the counter dicts, bound once: a replay adds its tally to them
+        counters = launch_counters()
+        self._adds = [(counters[name], mode, n)
+                      for name, modes in tally.items() for mode, n in modes.items()]
 
     def replay(self) -> None:
         self.graph.replay()
-        counters = launch_counters()
-        for name, modes in self.tally.items():
-            for mode, n in modes.items():
-                counters[name][mode] += n
+        for counter, mode, n in self._adds:
+            counter[mode] += n
 
 
 def capture(fn, stream: torch.cuda.Stream, generators=()):
@@ -98,32 +103,35 @@ def capture(fn, stream: torch.cuda.Stream, generators=()):
     draws what the eager call would draw next. A graph destroyed while
     another is being captured invalidates that capture (a graph that is
     cyclic garbage dies when the collector runs), so the collector is off
-    until the capture ends. A failed capture raises."""
-    dev = stream.device
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(dev)
-    counters = launch_counters()
-    before = {name: dict(c) for name, c in counters.items()}
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, stream=stream):
-            out = fn()
-    finally:
-        if collecting:
-            gc.enable()
-    tally = {}
-    for name, c in counters.items():
-        recorded = {m: n - before[name][m] for m, n in c.items() if n != before[name][m]}
-        for m, n in recorded.items():
-            c[m] -= n
-        if recorded:
-            tally[name] = recorded
-    return CountedGraph(graph, tally), torch.cuda.memory_reserved(dev) - reserved, out
+    until the capture ends. A failed capture raises. The whole of it is the
+    span ``gru4rec.graph.capture``, which every graph of the port shares;
+    its parent span tells the graph's kind."""
+    with span("gru4rec.graph.capture"):
+        dev = stream.device
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        counters = launch_counters()
+        before = {name: dict(c) for name, c in counters.items()}
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+        tally = {}
+        for name, c in counters.items():
+            recorded = {m: n - before[name][m] for m, n in c.items() if n != before[name][m]}
+            for m, n in recorded.items():
+                c[m] -= n
+            if recorded:
+                tally[name] = recorded
+        return CountedGraph(graph, tally), torch.cuda.memory_reserved(dev) - reserved, out
 
 
 def leaves(*trees):

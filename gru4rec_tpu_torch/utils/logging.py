@@ -3,7 +3,8 @@
 A copy of ``gru4rec_tpu/utils/logging.py``: the same ``EventLogger``, the
 same ``GRU4REC_TPU_LOG_JSONL`` variable and the same events (``epoch``,
 ``valid``, ``nan_abort``, with the JAX package's fields), so one log reader
-serves both packages. The reference prints only (README.md:467) and its one
+serves both packages. The port's ``epoch`` event adds the epoch's pace
+counters (``host_s``, ``device_s``, ``behind``: ``utils/profiling.py::Pace``). The reference prints only (README.md:467) and its one
 machine-readable contract is the ``PRIMARY METRIC:`` stdout line (run.py:133);
 the prints stay, and a JSONL event stream is added when a path is passed or
 GRU4REC_TPU_LOG_JSONL is set.

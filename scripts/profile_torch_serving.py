@@ -14,11 +14,11 @@ a warm-up, serves the same requests two ways in one process: ``graph``
   ``call_ms``, ``kernels`` per call, the launches the host issued per call
   (kernel and graph launches, asynchronous copies and fills) and the host
   operations ranked by their own CPU time;
-* for ``eager`` only, ``stage_ms``: the median host ms of each stage of the
-  same call, run separately with a synchronisation after the device work:
-  the lane bookkeeping, the item-id lookup and upload, the dispatch of the
-  serving step and ``torch.topk``, the wait for the device, the fetch of
-  ids and scores, and the id take;
+* ``stage_ms``: the median host ms, over the traced calls, of each of the
+  call's own spans (``gru4rec.serve`` and its children, README.md: the
+  keep mask, the id lookup, the upload, the replay or, eagerly, the step,
+  the fetch of ids and scores, which waits for the device, and the id
+  map), read from the same trace as ``device_ms``;
 * the SM clock (``nvidia-smi``) just before and just after the timed calls.
 
 Requests carry the item ids as int64 (the catalog's dtype), or with
@@ -38,18 +38,29 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from collections import defaultdict
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-STAGES = ("lanes", "lookup", "dispatch", "device_wait", "fetch", "ids")
-
 
 def _sm_clock() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+
+
+def span_ms(path: str) -> dict:
+    """The median ms of each ``gru4rec.serve*`` span of a chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("gru4rec.serve"):
+            by_name[e["name"]].append(e["dur"] / 1e3)
+    return {name: float(np.median(v)) for name, v in sorted(by_name.items())}
 
 
 def main():
@@ -61,7 +72,6 @@ def main():
     args = ap.parse_args()
 
     import pandas as pd
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import N_ITEMS, flagship_cfg
@@ -79,26 +89,6 @@ def main():
     rng = np.random.RandomState(0)
     card = nvidia_smi_line()
 
-    def stages(sess, items):
-        t = [time.perf_counter()]
-        m._ensure_lanes(len(sess))
-        m._reset_changed_lanes(sess)
-        t.append(time.perf_counter())
-        idx = m._item_indices(items)
-        t.append(time.perf_counter())
-        H, yhat = m._build_predict_fn(False)(m.params, m.H, idx)
-        for h, hn in zip(m.H, H):
-            h.copy_(hn)
-        sc, ix = torch.topk(yhat, args.k, dim=1, sorted=True)
-        t.append(time.perf_counter())
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        ix, sc = ix.cpu().numpy(), sc.cpu().numpy()
-        t.append(time.perf_counter())
-        np.asarray(m.itemidmap.index[ix.ravel()], dtype=object).reshape(ix.shape)
-        t.append(time.perf_counter())
-        return np.diff(t) * 1e3
-
     for batch in args.batches:
         sess = np.arange(batch)
         calls = [vocab[rng.randint(0, N_ITEMS, batch)] for _ in range(args.reps)]
@@ -113,8 +103,6 @@ def main():
                 m.predict_topk(sess, x, k=args.k, batch=batch)
                 wall.append((time.perf_counter() - t0) * 1e3)
             clock_after = _sm_clock()
-            stage = (dict(zip(STAGES, map(float, np.median(
-                [stages(sess, x) for x in calls], axis=0)))) if way == "eager" else None)
 
             def serve():
                 for x in calls:
@@ -125,7 +113,10 @@ def main():
             host = sorted(((e.key, e.self_cpu_time_total / 1e3 / args.reps,
                             e.count / args.reps) for e in prof.key_averages()),
                           key=lambda r: -r[1])[:10]
-            rec = trace(serve, args.reps)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                rec = trace(serve, args.reps, path)
+                stage = span_ms(path)
             call_ms = float(np.median(wall))
             print(json.dumps({
                 "batch": batch, "way": way, "id_dtype": args.id_dtype, "k": args.k,
