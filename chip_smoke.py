@@ -41,7 +41,12 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    flagship step whose GEMMs are all bf16 tensor-core GEMMs, and with
    float32 products all float32 ones. Every training phase then checks the
    products' launches: ``mm_per_step`` per step, the forward ones per
-   evaluation step;
+   evaluation step; then ``score_rank``: the full-catalog ranking kernel
+   (``ops/kernels/score_rank.py``) against its plain version at rees46's
+   evaluation shape in each tie mode, one call with host syncs an error,
+   and its device, wrapper and plain time per call beside one read of the
+   scores (``score_rank_timing``); every training phase's ``evaluate``
+   calls it once per step under a softmax final activation;
 5. reference — the training slice on the card against the same slice on
    the CPU at a small size, step by step;
 6. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
@@ -1034,6 +1039,103 @@ def phase_mixed_mm(smi_line):
     return records
 
 
+# the full-catalog ranking kernel at rees46's evaluation: B, N (the padded
+# catalog), n_items, the width of the table whose column h is the bias
+SCORE_RANK_SHAPE = (512, 200_064, 200_000, 640)
+SCORE_RANK_STEPS = 64
+
+
+def _near_target(x, bias, n_items, tgt):
+    """Per lane, the other real columns whose plain activated value lies
+    within one float32 ulp of the target's (the target's own column left
+    out: the kernel must count it exactly)."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.activations import masked_softmax
+
+    cols = torch.arange(x.shape[1], device=x.device)
+    valid = cols < n_items
+    yhat = masked_softmax(x + bias, valid)
+    t = yhat[torch.arange(x.shape[0], device=x.device), tgt][:, None]
+    ulp = torch.nextafter(t, torch.full_like(t, torch.inf)) - t
+    others = valid & (cols != tgt[:, None].long())
+    return torch.sum(((yhat - t).abs() <= ulp) & others, dim=1)
+
+
+def phase_score_rank(smi_line):
+    """The full-catalog ranking kernel (``ops/kernels/score_rank.py``,
+    ``csrc/score_rank.cu``) at rees46's evaluation shape
+    (``SCORE_RANK_SHAPE``, logits and bias drawn from a seed, a third of
+    the lanes invalid): in each tie mode its counts against the plain
+    version's on the card, each lane within the other columns whose plain
+    activated value lies within one ulp of the target's, so exact on a lane
+    with none (``off_lanes``, ``past_near``, ``near_columns``,
+    ``near_lanes``); one call under ``torch.cuda.set_sync_debug_mode
+    ("error")``; then ``SCORE_RANK_STEPS`` back-to-back calls (standard):
+    ``ms`` the device time per call of the kernels named ``score_rank*``
+    (``torch.profiler``; ``ops`` by name, each once per call), ``step_ms``
+    and ``plain_ms`` the wrapper's and the plain version's time per call
+    (CUDA events), ``bound_ms`` one read of the scores at 3.35 TB/s.
+    Returns the timing record."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import proto_measure
+    from gru4rec_tpu_torch.ops.kernels import score_rank as sr
+
+    B, N, n_items, width = SCORE_RANK_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    x = torch.randn((B, N), generator=gen, device=DEVICE) * 3.0
+    table = torch.zeros((N, width), device=DEVICE)
+    table[:n_items, width // 2] = torch.randn(n_items, generator=gen, device=DEVICE) * 0.5
+    bias = table[:, width // 2]
+    tgt = torch.randint(0, n_items, (B,), generator=gen, device=DEVICE, dtype=torch.int32)
+    tgt[::3] = 0
+    near = _near_target(x, bias, n_items, tgt)
+    checks = {}
+    for mode in sr.MODES:
+        got = sr.score_rank_cuda(x, bias, n_items, tgt, mode)
+        want = sr.score_rank_plain(x, bias, n_items, tgt, mode)
+        for name, g, w in zip(("gt", "second"), got, want):
+            if w is None:
+                continue
+            diff = (g.long() - w.long()).abs()
+            checks[f"{mode} {name}"] = {"off_lanes": int((diff > 0).sum()),
+                                        "off_sum": int(diff.sum()),
+                                        "past_near": int((diff > near).sum())}
+    near_lanes = int((near > 0).sum())
+    emit({"phase": "score_rank", "shape": [B, N, n_items], "checks": checks,
+          "near_columns": int(near.sum()), "near_lanes": near_lanes, "card": smi_line})
+    bad = {k: v for k, v in checks.items() if v["past_near"] or v["off_lanes"] > near_lanes}
+    if bad:
+        raise AssertionError(f"score_rank: counts past the near columns {bad}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sr.score_rank_cuda(x, bias, n_items, tgt, "median")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps = SCORE_RANK_STEPS
+    xs = [x, torch.randn((B, N), generator=gen, device=DEVICE) * 3.0]
+    kern = lambda s: sr.score_rank_cuda(xs[s % 2], bias, n_items, tgt, "standard")
+    plain = lambda s: sr.score_rank_plain(xs[s % 2], bias, n_items, tgt, "standard")
+    times = proto_measure.device_times(kern, steps=steps)
+    ours = {k: v for k, v in times.items() if "score_rank" in k}
+    if not ours or any(abs(n - steps) > steps // 16 for _, n in ours.values()):
+        raise AssertionError(f"score_rank: kernels per call {times}")
+    bytes_read = B * N * 4
+    rec = {"phase": "score_rank_timing", "shape": [B, N, n_items],
+           "ms": sum(us for us, _ in ours.values()) / steps / 1e3,
+           "ops": {k[:60]: us / n for k, (us, n) in ours.items()},
+           "other_ops": {k[:60]: v for k, v in times.items() if k not in ours},
+           "step_ms": proto_measure.steps_us(kern, steps=steps) / 1e3,
+           "plain_ms": proto_measure.steps_us(plain, steps=steps, reps=3) / 1e3,
+           "bound_ms": bytes_read / HBM_BYTES_PER_S * 1e3, "bytes": bytes_read,
+           "bound_by": "bytes", "library_ms": None, "card": smi_line}
+    emit(rec)
+    return rec
+
+
 def phase_reference():
     """The training slice on the card against the same slice on the CPU at
     a small size (60 items, layers [32], batch 8, 16 injected negatives,
@@ -1203,8 +1305,10 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
     read just after. ``per_step`` = {mode: launches per step} that the path
     must show (every other mode none); the products must number
     ``mm_per_step`` per training step and its forward ones per evaluation
-    step (``mm_launches``); ``fit`` must have replayed its captured step on
-    every step but the warm-up (``graph``: warm-up steps, replays, pool
+    step (``mm_launches``); the full-catalog ranking kernel must run once
+    per evaluation step under a softmax final activation, else never
+    (``score_rank_launches``); ``fit`` must have replayed its captured step
+    on every step but the warm-up (``graph``: warm-up steps, replays, pool
     bytes). With
     ``extra`` (a dict of fields for the record), the record
     also holds ``evaluate``'s seconds and events/s, the device memory peak
@@ -1216,7 +1320,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
     from gru4rec_tpu_torch import GRU4Rec, evaluate
     from gru4rec_tpu_torch.eval.evaluation import _eval_schedule
     from gru4rec_tpu_torch.ops import mixed_mm
-    from gru4rec_tpu_torch.ops.kernels import sparse_update
+    from gru4rec_tpu_torch.ops.kernels import score_rank, sparse_update
 
     model = GRU4Rec(cfg, device=DEVICE)
     details = {}
@@ -1225,6 +1329,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
         torch.cuda.reset_peak_memory_stats()
     sparse_update.reset_launches()
     mixed_mm.reset_launches()
+    score_rank.reset_launches()
     with _schedules() as schedules, _updates(extra is not None) as (eager, captured), \
             _chunk_fns() as made:
         model.fit(train)
@@ -1242,6 +1347,10 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
     if mm_launches != want:
         raise AssertionError(f"{phase}: tensor-core products {mm_launches} over {steps} "
                              f"training and {eval_steps} evaluation steps, expected {want}")
+    ranked = sum(score_rank.launches_by_mode.values())
+    if ranked != (eval_steps if cfg.final_act in ("softmax", "softmax_logit") else 0):
+        raise AssertionError(f"{phase}: score_rank ran {ranked} times over {eval_steps} "
+                             f"evaluation steps under final_act={cfg.final_act!r}")
     if extra is not None:
         n_eval = int((test.groupby("SessionId").size() - 1).sum())
         details = {**extra, "eval_events": n_eval, "eval_seconds": t_eval,
@@ -1283,6 +1392,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
               "events_per_s": stats["events"] / stats["seconds"],
               "recall": dict(zip(names, rec)), "mrr": dict(zip(names, mrr)),
               "launches": by_mode, "mm_launches": mm_launches, "eval_steps": eval_steps,
+              "score_rank_launches": ranked,
               "graph": graph, **schedules, **details,
               "card": smi_line}
     emit(record)
@@ -4003,6 +4113,7 @@ def main() -> int:
     phase_kernel()
     timing = phase_kernel_timing()
     mm = phase_mixed_mm(smi_line)
+    ranking = phase_score_rank(smi_line)
     phase_reference()
     paths = {}
     paths["train"], flagship = phase_train(smi_line)
@@ -4085,6 +4196,17 @@ def main() -> int:
         **{k: mm[shape][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
     } for shape, (phase, path) in MIXED_MM_TABLE.items()]
+    # library_ms: no PyTorch call ranks a target among softmax scores
+    kernels.append({
+        "name": "score_rank[rees46 evaluation]",
+        "route": "cuda",
+        "source": "gru4rec_tpu_torch/csrc/score_rank.cu",
+        "replaces": None,
+        "path": "published: rees46 evaluate",
+        "launches": paths["published_rees46"]["score_rank_launches"],
+        **{k: ranking[k] for k in ("ms", "step_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+    })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,7 @@ from gru4rec_tpu_torch.data.scheduler import build_schedule
 from gru4rec_tpu_torch.data.tools import compute_offset
 from gru4rec_tpu_torch.models import gru
 from gru4rec_tpu_torch.ops.activations import NEG_INF, get_activation
+from gru4rec_tpu_torch.ops.kernels import score_rank
 from gru4rec_tpu_torch.ops.ranking import TIE_MODES, compute_ranks, ranks_from_counts
 from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_layout,
                                                   make_row_gather, shard_params)
@@ -76,17 +77,38 @@ def _input_rows(params, idx, mode, gather_rows=lambda table, idx: table[idx]):
     return {"Wx0": gather_rows(params["Wx"][0], idx)}
 
 
+def _on_card(t) -> bool:
+    """Whether the step ranks through the ranking kernel: a CUDA tensor.
+    On the CPU the step keeps its eager ops, and with them ``compute_ranks``
+    as the one place every evaluation ranks there."""
+    return t.device.type == "cuda"
+
+
 def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                    items_subset: bool = False):
     """Build the per-step evaluation function ``step(params, H, in_idx,
     out_idx, valid, reset, rec, mrr, gen, item_idx=None)``: the lanes ``H``
     change in place, and ``rec`` and ``mrr`` (len(cutoffs),) accumulate in
     place, so that a captured step (:class:`_EvalGraph`) reads and writes
-    the same tensors on every replay. Nothing in it waits on the host."""
+    the same tensors on every replay. Nothing in it waits on the host.
+
+    On the card (:func:`_on_card`), full-catalog ranking under a softmax
+    final activation (``softmax`` or ``softmax_logit``, which ranks as
+    ``softmax``) in the ``standard``, ``conservative`` or ``median`` tie
+    mode goes, after the scores GEMM, through the kernel of
+    ``ops/kernels/score_rank.py`` (``score_rank_cuda``), whose counts this
+    module's ``ranks_from_counts`` turns into ranks. The CPU, the subset,
+    ``tiebreaking`` and elementwise final activations score through
+    ``gru.forward`` and rank with eager ops (the kernel's plain version),
+    the full catalog through this module's ``compute_ranks``."""
     if tie_mode not in TIE_MODES:
         raise NotImplementedError(f"Unknown tie mode: {tie_mode!r}")
     mode = gru.input_mode(cfg)
     cutoffs = tuple(int(c) for c in cutoffs)
+    fused = (not items_subset and cfg.final_act in ("softmax", "softmax_logit")
+             and tie_mode in score_rank.MODES)
+    mm = gru.make_mm(cfg)
+    h_last = cfg.layers[-1]
 
     def step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen,
              item_idx=None):
@@ -118,8 +140,15 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                 # deliberate divergence from the reference's subset path)
                 self_adj = torch.where(dup.any(dim=1), 0.0,
                                        1.0 if tie_mode == "conservative" else 0.5)
+            ranks = compute_ranks(others, target, tie_mode) + self_adj
+        elif fused and _on_card(Wy):
+            H_new, y = gru.forward_stack(params, srows, H_in, cfg, M=b, training=False,
+                                         full_catalog=True)
+            counts = score_rank.score_rank_cuda(mm(y, Wy[:, :h_last].T), Wy[:, h_last],
+                                                n_items, torch.where(valid, out_idx, 0),
+                                                tie_mode)
+            ranks = ranks_from_counts(*counts, tie_mode)
         else:
-            self_adj = 0.0  # full catalog: the self-comparison is in `others`
             item_valid = torch.arange(Wy.shape[0], device=Wy.device) < n_items
             H_new, yhat = gru.forward(params, srows, H_in, cfg, M=b, training=False,
                                       full_catalog=True, item_valid=item_valid)
@@ -128,8 +157,8 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                 yhat = yhat + torch.rand(yhat.shape, generator=gen,
                                          device=yhat.device) * 1e-10
             target = yhat[lanes, torch.where(valid, out_idx, 0)]
-            others = yhat
-        ranks = compute_ranks(others, target, tie_mode) + self_adj
+            # full catalog: the self-comparison is among the columns
+            ranks = compute_ranks(yhat, target, tie_mode)
         vf = valid.float()
         for k, c in enumerate(cutoffs):
             hit = (ranks <= c).float() * vf

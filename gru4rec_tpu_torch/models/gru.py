@@ -167,7 +167,7 @@ def gru_cell(vec, H, Wrz, Wh, hidden_act, hdim, mm=torch.matmul):
     return (1.0 - z) * H + z * hbar
 
 
-def forward(
+def forward_stack(
     params: Dict,
     srows: Dict,
     H: List,
@@ -176,30 +176,14 @@ def forward(
     M=None,
     training: bool,
     gen: Optional[torch.Generator] = None,
-    col_valid=None,
-    logq_correction=None,
     full_catalog: bool = False,
-    item_valid=None,
     dropout_lanes=None,
 ):
-    """Single-step forward.
-
-    ``srows`` carries the gathered rows (differentiation targets); Wy rows
-    include the folded bias column at index h plus padding (w =
-    pad_cols(h+1)):
-      one-hot:      {'Wx0': (B, 3h), 'Wy': (N, w)}
-      embedding:    {'E': (B, d_e), 'Wy': (N, w)}
-      constrained:  {'WyS': (B+N, w)}  — single concat gather
-    For ``full_catalog`` scoring (predict/eval), the full (padded) Wy table
-    is used instead of gathered rows. ``gen`` draws the dropout masks;
-    ``dropout_lanes = (lo, batch)`` says that the rows are lanes ``lo ..``
-    of a batch of ``batch`` (a mesh rank's block, ``parallel/dist_step.py``).
-
-    Returns (H_new list, yhat (B, N) or (B, n_items_pad)).
-    """
+    """The GRU stack of :func:`forward`, without its scoring: ``(H_new
+    list, y)``, ``y`` (B, h) the last layer's output, which the scores
+    multiply by the item table."""
     mode = input_mode(cfg)
     hidden_act = get_activation(cfg.hidden_act)
-    final_act_name = cfg.final_act
     layers = cfg.layers
     mm = make_mm(cfg)
     drop = training and gen is not None
@@ -231,6 +215,44 @@ def forward(
         h = _dropout(h, cfg.dropout_p_hidden, gen, dropout_lanes) if drop else h
         y = h
         H_new.append(h)
+    return H_new, y
+
+
+def forward(
+    params: Dict,
+    srows: Dict,
+    H: List,
+    cfg: GRU4RecConfig,
+    *,
+    M=None,
+    training: bool,
+    gen: Optional[torch.Generator] = None,
+    col_valid=None,
+    logq_correction=None,
+    full_catalog: bool = False,
+    item_valid=None,
+    dropout_lanes=None,
+):
+    """Single-step forward.
+
+    ``srows`` carries the gathered rows (differentiation targets); Wy rows
+    include the folded bias column at index h plus padding (w =
+    pad_cols(h+1)):
+      one-hot:      {'Wx0': (B, 3h), 'Wy': (N, w)}
+      embedding:    {'E': (B, d_e), 'Wy': (N, w)}
+      constrained:  {'WyS': (B+N, w)}  — single concat gather
+    For ``full_catalog`` scoring (predict/eval), the full (padded) Wy table
+    is used instead of gathered rows. ``gen`` draws the dropout masks;
+    ``dropout_lanes = (lo, batch)`` says that the rows are lanes ``lo ..``
+    of a batch of ``batch`` (a mesh rank's block, ``parallel/dist_step.py``).
+
+    Returns (H_new list, yhat (B, N) or (B, n_items_pad)).
+    """
+    final_act_name = cfg.final_act
+    mm = make_mm(cfg)
+    h_last = cfg.layers[-1]
+    H_new, y = forward_stack(params, srows, H, cfg, M=M, training=training, gen=gen,
+                             full_catalog=full_catalog, dropout_lanes=dropout_lanes)
 
     # --- scoring ---
     if full_catalog:

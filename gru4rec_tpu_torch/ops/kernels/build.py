@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("sparse_update", "proto_adagrad")  # csrc/<name>.cu
+SOURCES = ("sparse_update", "proto_adagrad", "score_rank")  # csrc/<name>.cu
 HOST_SOURCES = ("scheduler",)  # csrc/<name>.cpp, built by g++
 # -fmad=false and no --use_fast_math: the kernels round as the plain torch
 # versions they are held against do (one rounding per operation)

@@ -31,8 +31,9 @@ def ranks_from_counts(gt, ge_or_eq, mode: str):
     raise NotImplementedError(f"Unknown tie mode: {mode!r}")
 
 
-def compute_ranks(others, target, mode: str):
-    """ranks[i] of target[i] among others[i, :] under the given tie mode."""
+def rank_counts(others, target, mode: str):
+    """The per-row counts :func:`ranks_from_counts` takes: ``(gt, second)``,
+    ``second`` None unless the mode needs it."""
     t = target[:, None]
     gt = torch.sum(others > t, dim=1)
     second = None
@@ -40,4 +41,9 @@ def compute_ranks(others, target, mode: str):
         second = torch.sum(others >= t, dim=1)
     elif mode == "median":
         second = torch.sum(others == t, dim=1)
-    return ranks_from_counts(gt, second, mode)
+    return gt, second
+
+
+def compute_ranks(others, target, mode: str):
+    """ranks[i] of target[i] among others[i, :] under the given tie mode."""
+    return ranks_from_counts(*rank_counts(others, target, mode), mode)

@@ -69,10 +69,11 @@ def launch_counters() -> Dict[str, Dict[str, int]]:
     """The launch counters of the port's device routes, by module: each
     wrapper adds one where it issues its kernel (``launches_by_mode``)."""
     from gru4rec_tpu_torch.ops import mixed_mm
-    from gru4rec_tpu_torch.ops.kernels import sparse_update
+    from gru4rec_tpu_torch.ops.kernels import score_rank, sparse_update
 
     return {"sparse_update": sparse_update.launches_by_mode,
-            "mixed_mm": mixed_mm.launches_by_mode}
+            "mixed_mm": mixed_mm.launches_by_mode,
+            "score_rank": score_rank.launches_by_mode}
 
 
 class CountedGraph:

@@ -1,0 +1,455 @@
+"""Full-catalog ranking after the scores GEMM:
+``gru4rec_tpu_torch/ops/kernels/score_rank.py`` (the wrapper of
+``csrc/score_rank.cu`` and its plain version) and its route in
+``eval/evaluation.py::make_eval_step``.
+
+On the CPU:
+
+* the plain version equals the op sequence the evaluation step ran before
+  it (``masked_softmax`` of the biased scores, the ``-inf`` mask of the
+  padding columns, the target's gather, ``compute_ranks``' comparisons and
+  sums) bit for bit, in every tie mode the kernel takes, with padding
+  columns, planted ties and invalid lanes (target column 0);
+* the step's route through it (taken on the card; here with
+  ``evaluation._on_card`` patched and the wrapper ``score_rank_cuda``
+  replaced by its plain version) gives the lanes and counters of
+  ``gru.forward``'s full-catalog path bit for bit;
+* that route turns its counts into ranks through
+  ``evaluation.ranks_from_counts`` and the CPU's full-catalog step through
+  ``evaluation.compute_ranks``, so a fault planted in the one reaches its
+  route alone;
+* ``make_eval_step`` calls the wrapper only on the card, for full-catalog
+  ranking under a softmax final activation in the ``standard``,
+  ``conservative`` or ``median`` tie mode; the CPU, the subset,
+  ``tiebreaking``, elementwise final activations and the mesh step never
+  reach it;
+* the wrapper's card path raises on logits, bias or targets it does not
+  take (dtype, shape, contiguity, device, tie mode), with a stub for the
+  launch, and counts a call it does take.
+
+On the card (``cuda``-marked, skipped here; run there with
+``python -m pytest --noconftest -m cuda tests/test_torch_score_rank.py``):
+the kernel's counts against the plain version's on the card at (8, 1,000),
+(240, 37,120) and (512, 200,064), several seeds, every tie mode, padding
+columns and invalid lanes: each lane's difference at most the number of
+other columns whose plain activated value lies within one ulp of the
+target's (the kernel sums the softmax in another order), so exact where
+there are none; exactly equal on planted
+exact ties; the same bound on lanes that the kernel recounts exactly (a
+subnormal or zero target probability, a NaN or infinite score); one call
+per step of a captured ``evaluate``, graph against eager bit for bit.
+This file imports no JAX.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from gru4rec_tpu_torch.config import GRU4RecConfig  # noqa: E402
+from gru4rec_tpu_torch.eval import evaluation as teval  # noqa: E402
+from gru4rec_tpu_torch.models import gru  # noqa: E402
+from gru4rec_tpu_torch.ops.activations import masked_softmax  # noqa: E402
+from gru4rec_tpu_torch.ops.kernels import score_rank as sr  # noqa: E402
+from gru4rec_tpu_torch.ops.ranking import compute_ranks, ranks_from_counts  # noqa: E402
+
+MODES = sr.MODES
+
+
+def logits_case(B, N, n_items, seed, device="cpu", ties=True, width=48):
+    """Logits (B, N), the bias column of a (N, width) float32 table (a
+    strided view), int32 targets with every third lane invalid (column 0)
+    and, with ``ties``, columns 1-3 copies of column 0 (logits and bias)
+    and each lane's target copied into two columns of its own at the top of
+    the catalog."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(B, N) * 3.0).astype(np.float32)
+    table = np.zeros((N, width), np.float32)
+    b = width // 2
+    table[:n_items, b] = rng.randn(n_items).astype(np.float32) * 0.5
+    tgt = rng.randint(0, n_items - 2 * B, size=B).astype(np.int32)
+    tgt[::3] = 0
+    if ties:
+        x[:, 1:4] = x[:, :1]
+        table[1:4, b] = table[0, b]
+        for r in range(B):
+            for c in (n_items - 1 - 2 * r, n_items - 2 - 2 * r):
+                x[r, c] = x[r, tgt[r]]
+                table[c, b] = table[tgt[r], b]
+    t = torch.from_numpy(table).to(device)
+    return (torch.from_numpy(x).to(device), t[:, width // 2],
+            torch.from_numpy(tgt).to(device))
+
+
+def todays_counts(x, bias, n_items, tgt, mode):
+    """The evaluation step's op sequence before the kernel existed."""
+    item_valid = torch.arange(x.shape[1]) < n_items
+    yhat = masked_softmax(x + bias, item_valid)
+    yhat = torch.where(item_valid, yhat, -torch.inf)
+    target = yhat[torch.arange(x.shape[0]), tgt]
+    t = target[:, None]
+    gt = torch.sum(yhat > t, dim=1)
+    second = None
+    if mode == "conservative":
+        second = torch.sum(yhat >= t, dim=1)
+    elif mode == "median":
+        second = torch.sum(yhat == t, dim=1)
+    return gt, second, compute_ranks(yhat, target, mode)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_matches_the_eager_sequence(mode, seed):
+    B, N, n_items = 12, 301, 290
+    x, bias, tgt = logits_case(B, N, n_items, seed)
+    gt, second = sr.score_rank_plain(x, bias, n_items, tgt, mode)
+    want_gt, want_second, want_ranks = todays_counts(x, bias, n_items, tgt, mode)
+    assert torch.equal(gt, want_gt)
+    assert (second is None) == (want_second is None)
+    if second is not None:
+        assert torch.equal(second, want_second)
+    assert torch.equal(ranks_from_counts(gt, second, mode), want_ranks)
+    # the ties are there: a lane's target equals several columns
+    eq = sr.score_rank_plain(x, bias, n_items, tgt, "median")[1]
+    assert int(eq.min()) >= 3 and int(eq[::3].min()) >= 4
+
+
+def step_cfg(**kw):
+    args = dict(loss="cross-entropy", final_act="softmax", layers=[16], batch_size=8,
+                n_sample=8, compute_dtype="float32", opt_state_dtype="float32",
+                item_pad_multiple=8, seed=3, constrained_embedding=True)
+    args.update(kw)
+    return GRU4RecConfig(**args)
+
+
+def step_inputs(cfg, n_items, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    params = gru.init_params(cfg, n_items, "cpu")
+    params["Wy"][:n_items, cfg.layers[-1]] = torch.randn(n_items, generator=gen) * 0.3
+    b = cfg.batch_size
+    in_idx = torch.randint(0, n_items, (b,), generator=gen, dtype=torch.int32)
+    out_idx = torch.randint(0, n_items, (b,), generator=gen, dtype=torch.int32)
+    valid = torch.arange(b) % 4 != 3
+    reset = torch.arange(b) % 3 == 0
+    H = [torch.randn(b, h, generator=gen) for h in cfg.layers]
+    return params, H, in_idx, out_idx, valid, reset
+
+
+def forward_path_step(cfg, n_items, cutoffs, mode):
+    """The full-catalog step as it ran before the route: ``gru.forward``'s
+    activated scores, the mask and ``compute_ranks``."""
+
+    def step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen):
+        Wy = params["Wy"]
+        H_in = [torch.where(reset[:, None], 0.0, h) for h in H]
+        srows = teval._input_rows(params, torch.where(valid, in_idx, 0), "constrained")
+        item_valid = torch.arange(Wy.shape[0]) < n_items
+        H_new, yhat = gru.forward(params, srows, H_in, cfg, M=in_idx.shape[0], training=False,
+                                  full_catalog=True, item_valid=item_valid)
+        yhat = torch.where(item_valid, yhat, -torch.inf)
+        target = yhat[torch.arange(in_idx.shape[0]), torch.where(valid, out_idx, 0)]
+        ranks = compute_ranks(yhat, target, mode) + 0.0
+        vf = valid.float()
+        for k, c in enumerate(cutoffs):
+            hit = (ranks <= c).float() * vf
+            rec[k] += torch.sum(hit)
+            mrr[k] += torch.sum(hit / ranks)
+        for h, hn, ho in zip(H, H_new, H_in):
+            h.copy_(torch.where(valid[:, None], hn, ho))
+
+    return step
+
+
+@pytest.mark.parametrize("final_act", ["softmax", "softmax_logit"])
+@pytest.mark.parametrize("mode", MODES)
+def test_routed_step_matches_the_forward_path(mode, final_act, monkeypatch):
+    calls = []
+    monkeypatch.setattr(teval, "_on_card", lambda t: True)
+    monkeypatch.setattr(sr, "score_rank_cuda",
+                        lambda *a: calls.append(a[-1]) or sr.score_rank_plain(*a))
+    cfg = step_cfg(final_act=final_act, compute_dtype="bfloat16")
+    n_items, cutoffs = 50, (1, 5, 20)
+    params, H, in_idx, out_idx, valid, reset = step_inputs(cfg, n_items)
+    outs = []
+    for step in (teval.make_eval_step(cfg, n_items, cutoffs, mode),
+                 forward_path_step(cfg, n_items, cutoffs, mode)):
+        Hs = [h.clone() for h in H]
+        rec, mrr = torch.zeros(3), torch.zeros(3)
+        for _ in range(3):  # the lanes carry over
+            step(params, Hs, in_idx, out_idx, valid, reset, rec, mrr, None)
+        outs.append((Hs, rec, mrr))
+    (H1, rec1, mrr1), (H2, rec2, mrr2) = outs
+    assert torch.equal(rec1, rec2) and torch.equal(mrr1, mrr2)
+    assert all(torch.equal(a, b) for a, b in zip(H1, H2))
+    assert float(rec1[-1]) > 0 and len(calls) == 3
+
+
+class FakeMesh:
+    """One rank's mesh (``parallel/mesh.py::Mesh``'s surface that the
+    mesh step reads): its collectives return their input."""
+    shape = {"data": 1, "model": 1}
+    mi = 0
+
+    @staticmethod
+    def lanes(batch):
+        return 0, batch
+
+    @staticmethod
+    def all_reduce(t, axis, op=None):
+        return t
+
+
+ROUTES = {  # name: (final_act, tie mode, subset, mesh, on the card, reaches the wrapper)
+    "softmax standard": ("softmax", "standard", False, False, True, True),
+    "softmax conservative": ("softmax", "conservative", False, False, True, True),
+    "softmax_logit median": ("softmax_logit", "median", False, False, True, True),
+    "cpu": ("softmax", "standard", False, False, False, False),
+    "subset": ("softmax", "standard", True, False, True, False),
+    "tiebreaking": ("softmax", "tiebreaking", False, False, True, False),
+    "elu": ("elu-0.5", "standard", False, False, True, False),
+    "tanh": ("tanh", "median", False, False, True, False),
+    "linear": ("linear", "conservative", False, False, True, False),
+    "mesh": ("softmax", "standard", False, True, True, False),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_make_eval_step_routes(route, monkeypatch):
+    final_act, mode, subset, mesh, card, engaged = ROUTES[route]
+    calls = []
+
+    def patched(*args):
+        calls.append(args[-1])
+        return sr.score_rank_plain(*args)
+
+    monkeypatch.setattr(sr, "score_rank_cuda", patched)
+    monkeypatch.setattr(teval, "_on_card", lambda t: card)
+    cfg = step_cfg(final_act=final_act)
+    n_items = 40
+    params, H, in_idx, out_idx, valid, reset = step_inputs(cfg, n_items, seed=1)
+    item_idx = torch.arange(0, n_items, 4, dtype=torch.int32) if subset else None
+    if mesh:
+        step = teval.make_dist_eval_step(cfg, n_items, (5,), mode, FakeMesh(), cfg.batch_size,
+                                         subset)
+    else:
+        step = teval.make_eval_step(cfg, n_items, (5,), mode, subset)
+    rec, mrr = torch.zeros(1), torch.zeros(1)
+    gen = torch.Generator().manual_seed(0)
+    step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen, item_idx)
+    assert calls == ([mode] if engaged else [])
+
+
+@pytest.mark.parametrize("seam", ["ranks_from_counts", "compute_ranks"])
+@pytest.mark.parametrize("card", [True, False], ids=["card route", "cpu route"])
+def test_fault_seam_of_each_full_catalog_route(card, seam, monkeypatch):
+    """Each full-catalog route ranks through one module-level function of
+    ``evaluation``: the card's through ``ranks_from_counts``, the CPU's
+    through ``compute_ranks``. A fault planted there (every rank one
+    worse) moves that route's counters, and the other function's does
+    not."""
+    monkeypatch.setattr(teval, "_on_card", lambda t: card)
+    monkeypatch.setattr(sr, "score_rank_cuda", sr.score_rank_plain)
+    cfg = step_cfg()
+    n_items, cutoffs = 40, (1, 5, 20)
+    params, H, in_idx, out_idx, valid, reset = step_inputs(cfg, n_items, seed=2)
+    outs = []
+    for fault in (False, True):
+        if fault:
+            ranks = getattr(teval, seam)
+            monkeypatch.setattr(teval, seam, lambda *a: ranks(*a) + 1)
+        Hs = [h.clone() for h in H]
+        rec, mrr = torch.zeros(3), torch.zeros(3)
+        step = teval.make_eval_step(cfg, n_items, cutoffs, "standard")
+        for _ in range(3):
+            step(params, Hs, in_idx, out_idx, valid, reset, rec, mrr, None)
+        outs.append(torch.cat([rec, mrr]))
+    reaches = card == (seam == "ranks_from_counts")
+    assert float(outs[0][2]) > 0  # recall@20
+    assert torch.equal(outs[0], outs[1]) != reaches
+
+
+def fault_cases():
+    B, N = 6, 64
+    x = torch.zeros(B, N)
+    bias = torch.zeros(N, 4)[:, 2]
+    tgt = torch.zeros(B, dtype=torch.int32)
+    return {
+        "float64 logits": (x.double(), bias, 60, tgt, "standard"),
+        "transposed logits": (torch.zeros(N, B).T, bias, 60, tgt, "standard"),
+        "1-D logits": (x[0], bias, 60, tgt, "standard"),
+        "short bias": (x, bias[:-1], 60, tgt, "standard"),
+        "int bias": (x, torch.zeros(N, dtype=torch.int32), 60, tgt, "standard"),
+        "2-D bias": (x, torch.zeros(N, 1), 60, tgt, "standard"),
+        "int64 targets": (x, bias, 60, tgt.long(), "standard"),
+        "short targets": (x, bias, 60, tgt[:-1], "standard"),
+        "strided targets": (x, bias, 60, torch.zeros(2 * B, dtype=torch.int32)[::2],
+                            "standard"),
+        "n_items past N": (x, bias, N + 1, tgt, "standard"),
+        "no items": (x, bias, 0, tgt, "standard"),
+        "tiebreaking": (x, bias, 60, tgt, "tiebreaking"),
+        "targets on another device": (x, bias, 60, tgt.to("meta"), "standard"),
+    }
+
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """The card path with its library stubbed: the launches it would make."""
+    launched = []
+    monkeypatch.setattr(sr, "workspace_bytes", lambda B, N: 64)
+    monkeypatch.setattr(sr, "_launch", lambda *args: launched.append(args))
+    sr.reset_launches()
+    yield launched
+    sr.reset_launches()
+
+
+@pytest.mark.parametrize("fault", list(fault_cases()))
+def test_card_path_raises_on_what_it_does_not_take(fault, stub_launch):
+    with pytest.raises(ValueError):
+        sr.score_rank_cuda(*fault_cases()[fault])
+    assert stub_launch == [] and sum(sr.launches_by_mode.values()) == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_card_path_launches_and_counts(mode, stub_launch):
+    x = torch.zeros(6, 64)
+    bias = torch.zeros(64, 4, dtype=torch.bfloat16)[:, 2]
+    gt, second = sr.score_rank_cuda(x, bias, 60, torch.zeros(6, dtype=torch.int32), mode)
+    assert len(stub_launch) == 1 and sr.launches_by_mode[mode] == 1
+    assert gt.shape == (6,) and gt.dtype == torch.int32
+    assert (second is None) == (mode == "standard")
+
+
+# --------------------------------------------------------------------- #
+# On the card.
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def near_target(x, bias, n_items, tgt):
+    """Per lane, the other real columns whose plain activated value lies
+    within one float32 ulp of the target's (the target's own column left
+    out: the kernel must count it exactly)."""
+    cols = torch.arange(x.shape[1], device=x.device)
+    item_valid = cols < n_items
+    yhat = masked_softmax(x + bias, item_valid)
+    t = yhat[torch.arange(x.shape[0], device=x.device), tgt][:, None]
+    ulp = torch.nextafter(t, torch.full_like(t, torch.inf)) - t
+    others = item_valid & (cols != tgt[:, None].long())
+    return torch.sum(((yhat - t).abs() <= ulp) & others, dim=1)
+
+
+def assert_counts_close(x, bias, n_items, tgt, mode, exact=False):
+    got = sr.score_rank_cuda(x, bias, n_items, tgt, mode)
+    want = sr.score_rank_plain(x, bias, n_items, tgt, mode)
+    near = near_target(x, bias, n_items, tgt)
+    report = {}
+    for name, g, w in zip(("gt", "second"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        diff = (g.long() - w.long()).abs()
+        report[name] = (int(diff.sum()), int((diff > 0).sum()))
+        if exact:
+            assert torch.equal(g.long(), w.long()), name
+        else:
+            # a lane with no other column within an ulp is exact
+            assert bool((diff <= near).all()), (name, diff[diff > near][:8], near[diff > near][:8])
+            assert int((diff > 0).sum()) <= int((near > 0).sum()), name
+    print(mode, tuple(x.shape), "near columns", int(near.sum()), "off (sum, lanes)", report)
+    return report
+
+
+CARD_SHAPES = [(8, 1_000, 990), (240, 37_120, 36_992), (512, 200_064, 200_000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cuda_kernel_matches_plain(shape, mode, seed):
+    dev = _card()
+    B, N, n_items = shape
+    x, bias, tgt = logits_case(B, N, n_items, seed, dev, ties=False, width=640)
+    assert_counts_close(x, bias, n_items, tgt, mode)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cuda_planted_ties_are_exact(shape, mode):
+    """Logits on a coarse grid (no near ties) with duplicated item rows:
+    exact ties alone, which the kernel must count as the plain version
+    does."""
+    dev = _card()
+    B, N, n_items = shape
+    x, bias, tgt = logits_case(B, N, n_items, 5, dev, ties=True, width=640)
+    x = torch.round(x * 4) / 4
+    bias = torch.round(bias * 4) / 4
+    x[:, 1:4] = x[:, :1]
+    assert_counts_close(x, bias, n_items, tgt, mode, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_recounted_lanes(mode):
+    """Lanes the band cannot decide: the target 85, 100 and 200 below the
+    max (a subnormal probability of a normal exp, a subnormal exp, a zero),
+    a NaN score, an infinite score; again with a bfloat16 bias, and with an
+    odd width (the scalar loads)."""
+    dev = _card()
+    B, N, n_items = 8, 5_000, 4_990
+    x, bias, tgt = logits_case(B, N, n_items, 7, dev, ties=False, width=640)
+    for r, gap in ((1, 85.0), (2, 100.0), (3, 200.0)):
+        x[r, tgt[r]] = x[r].max() - gap
+    x[4, 17] = torch.nan
+    x[5, 23] = torch.inf
+    assert_counts_close(x, bias, n_items, tgt, mode)
+    assert_counts_close(x, bias.to(torch.bfloat16), n_items, tgt, mode)
+    assert_counts_close(x[:, :4_999].contiguous(), bias[:4_999], 4_990, tgt, mode)
+
+
+def card_model(final_act, seed=0):
+    from gru4rec_tpu_torch import GRU4Rec
+    from gru4rec_tpu_torch.data.loader import build_itemidmap
+
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    rows = [(s, f"item_{(7 * s + 3 * k) % 300}", 10 * s + k)
+            for s in range(400) for k in range(rng.randint(2, 9))]
+    test = pd.DataFrame(rows, columns=["SessionId", "ItemId", "Time"])
+    m = GRU4Rec(step_cfg(final_act=final_act, compute_dtype="bfloat16"))
+    m.itemidmap = build_itemidmap(test, "ItemId")
+    m.n_items = len(m.itemidmap)
+    m.params = gru.init_params(m.config, m.n_items, m.device)
+    m.params["Wy"][: m.n_items, 16].copy_(
+        torch.randn(m.n_items, generator=torch.Generator(device=m.device).manual_seed(seed),
+                    device=m.device) * 0.3)
+    return m, test
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_captured_evaluate_calls_once_per_step(mode):
+    import gru4rec_tpu_torch
+
+    _card()
+    m, test = card_model("softmax")
+    kw = dict(cut_off=[1, 5, 10], batch_size=8, mode=mode)
+    sr.reset_launches()
+    eager = gru4rec_tpu_torch.evaluate(m, test, _eager=True, **kw)
+    steps = sr.launches_by_mode[mode]
+    graphs = {}
+    got = gru4rec_tpu_torch.evaluate(m, test, _graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    (runner,) = graphs.values()
+    assert steps > 10 and runner.warm + runner.replays == steps
+    assert runner.graph.tally["score_rank"] == {mode: 1}
+    assert sr.launches_by_mode[mode] == 2 * steps
+    assert got == eager
