@@ -62,6 +62,11 @@
 //     later passes (widths above 256) are prefetched into L2. The gradient
 //     rows of a run's further positions are prefetched into L2 as the pass
 //     finds them and read kBatch at a time.
+//   * Mode tag. The kernel's last template argument names the TPU kernel a
+//     launch stands for, as the wrapper's `mode_of` does: `k1_width128`
+//     (non-SR, a width that is a multiple of 128), `k4_any_width` (non-SR,
+//     any other width), `k2_k3_sr` (SR). It changes no generated code; it
+//     makes K4's launches read apart from K1's by name in a trace.
 //   * Vector access. A lane owns kCols columns per pass in chunks of VEC
 //     contiguous columns: VEC = 4 (float4, or 8 bytes of bfloat16) when the
 //     host finds every row pitch and base pointer aligned to that (widths
@@ -236,6 +241,12 @@ __device__ __forceinline__ int row_at(const Args& a, int q) {
   return dedup::row_at(a.idx, a.idx64, q, a.n_rows);
 }
 
+// The mode tags (header: "Mode tag"): a kernel's name in a trace says which
+// TPU kernel the launch stands for.
+struct k1_width128 {};
+struct k4_any_width {};
+struct k2_k3_sr {};
+
 // One column of the update, float32 math in registers: gc the summed
 // gradient, t the table value, s1 / s2 the state slots (acc; adadelta's upd
 // or adam's meang), v the velocity; updated in place.
@@ -294,7 +305,7 @@ __device__ __forceinline__ void load_rows(Pass& x, const float* trow,
   if (MOM) load_cols<VEC>(vrow, d, base, lane, x.v);
 }
 
-template <int ADAPT, bool MOM, bool SR, typename ST, typename VT, int VEC>
+template <int ADAPT, bool MOM, bool SR, typename ST, typename VT, int VEC, typename MODE>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sparse_update_kernel(Args a, Hyper h) {
   __shared__ int s_row[kWarps];             // each warp's row, -2 if none
@@ -446,24 +457,34 @@ sparse_update_kernel(Args a, Hyper h) {
   }
 }
 
-template <int ADAPT, bool MOM, bool SR, typename ST, typename VT>
+template <int ADAPT, bool MOM, bool SR, typename ST, typename VT, typename MODE>
 void launch(const Args& a, int vec, const Hyper& h, cudaStream_t stream) {
   const int blocks = (a.K + kWarps - 1) / kWarps;
   if (vec)
-    sparse_update_kernel<ADAPT, MOM, SR, ST, VT, 4><<<blocks, kThreads, 0, stream>>>(a, h);
+    sparse_update_kernel<ADAPT, MOM, SR, ST, VT, 4, MODE><<<blocks, kThreads, 0, stream>>>(a, h);
   else
-    sparse_update_kernel<ADAPT, MOM, SR, ST, VT, 1><<<blocks, kThreads, 0, stream>>>(a, h);
+    sparse_update_kernel<ADAPT, MOM, SR, ST, VT, 1, MODE><<<blocks, kThreads, 0, stream>>>(a, h);
 }
 
-template <int ADAPT, bool SR, typename ST>
+template <int ADAPT, bool SR, typename ST, typename MODE>
 void dispatch_vel(int vel_dtype, const Args& a, int vec, const Hyper& h,
                   cudaStream_t stream) {
   if (vel_dtype < 0)
-    launch<ADAPT, false, SR, ST, float>(a, vec, h, stream);
+    launch<ADAPT, false, SR, ST, float, MODE>(a, vec, h, stream);
   else if (vel_dtype == 0)
-    launch<ADAPT, true, SR, ST, float>(a, vec, h, stream);
+    launch<ADAPT, true, SR, ST, float, MODE>(a, vec, h, stream);
   else
-    launch<ADAPT, true, SR, ST, __nv_bfloat16>(a, vec, h, stream);
+    launch<ADAPT, true, SR, ST, __nv_bfloat16, MODE>(a, vec, h, stream);
+}
+
+// Non-SR state, the launch tagged K1 or K4 by width (the wrapper's mode_of).
+template <int ADAPT, typename MODE>
+void dispatch_plain(int state_dtype, int vel_dtype, const Args& a, int vec,
+                    const Hyper& h, cudaStream_t stream) {
+  if (state_dtype == 0)
+    dispatch_vel<ADAPT, false, float, MODE>(vel_dtype, a, vec, h, stream);
+  else
+    dispatch_vel<ADAPT, false, __nv_bfloat16, MODE>(vel_dtype, a, vec, h, stream);
 }
 
 // Returns cudaErrorInvalidValue for a combination the kernel does not take
@@ -474,16 +495,16 @@ int dispatch_state(int state_dtype, int sr, int vel_dtype, const Args& a,
   if (sr) {
     if constexpr (ADAPT == ADAGRAD || ADAPT == ADAM) {
       if (state_dtype != 1) return (int)cudaErrorInvalidValue;
-      dispatch_vel<ADAPT, true, __nv_bfloat16>(vel_dtype, a, vec, h, stream);
+      dispatch_vel<ADAPT, true, __nv_bfloat16, k2_k3_sr>(vel_dtype, a, vec, h, stream);
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;
     }
   }
-  if (state_dtype == 0)
-    dispatch_vel<ADAPT, false, float>(vel_dtype, a, vec, h, stream);
+  if (a.d % 128 == 0)
+    dispatch_plain<ADAPT, k1_width128>(state_dtype, vel_dtype, a, vec, h, stream);
   else
-    dispatch_vel<ADAPT, false, __nv_bfloat16>(vel_dtype, a, vec, h, stream);
+    dispatch_plain<ADAPT, k4_any_width>(state_dtype, vel_dtype, a, vec, h, stream);
   return 0;
 }
 

@@ -313,7 +313,10 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
     A call is the span ``gru4rec.train.chunk``, with the children
     ``gru4rec.train.sample`` (the negative draw), ``.upload`` (the stack),
     ``.steps`` and ``.loss`` (:func:`run_steps`); ``state.pace``, when set,
-    counts the host seconds of the first two.
+    counts the host seconds of the first two. Each step that runs eagerly,
+    and the captured step once, opens ``gru4rec.train.sparse_update.<table>``
+    around each item table's row update (``Wx0``, ``E``, ``Wy``); a replay
+    opens none.
     """
     mode = gru.input_mode(cfg)
     loss_fn = get_loss(cfg.loss, cfg.n_sample, cfg.smoothing, cfg.bpreg)
@@ -390,9 +393,10 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
                     opt.apply_dense(p, next(gi), st)
             for name, g in zip(names, g_sparse):
                 sname = "Wy" if name == "WyS" else name
-                opt.apply_sparse(_sparse_table(params, sname), scatter_idx[name],
-                                 g, opt_state["sparse"][sname],
-                                 sr_seed=None if seeds is None else (seeds[sname], 0))
+                with span(f"gru4rec.train.sparse_update.{sname}"):
+                    opt.apply_sparse(_sparse_table(params, sname), scatter_idx[name],
+                                     g, opt_state["sparse"][sname],
+                                     sr_seed=None if seeds is None else (seeds[sname], 0))
             for h, hn, ho in zip(state.H, H_new, H):
                 h.copy_(torch.where(valid_d[:, None], hn.detach(), ho))
         return cost.detach() * Mf

@@ -7,8 +7,9 @@ trace.
   against 10-16 us for an idle ``record_function``). The spans are
   host events (``user_annotation``) in the same trace as the kernels, so
   a gap of the device falls inside the span that was running. They open
-  per call, per chunk and per phase, never per step; their names are
-  listed in README.md.
+  per call, per chunk and per phase; per step only around an item table's
+  row update (``gru4rec.train.sparse_update.<table>``), on eager steps and
+  at a capture, never on a replay. Their names are listed in README.md.
 * :class:`Pace`: one ``fit`` epoch's host seconds by phase, the stream
   time of its chunks' steps and the chunks whose device was behind the
   host, with no profiler (``epoch_stats`` and the JSONL ``epoch`` event).

@@ -5,7 +5,8 @@
 * Under ``torch.profiler`` the spans of ``fit``, the training chunk,
   ``evaluate`` and ``predict_topk`` carry their names and nest as
   documented: a schedule cache hit has no children; a chunk or a call
-  opens as many spans at 4 steps as at 40 (none per step).
+  opens as many spans at 4 steps as at 40, but for one
+  ``gru4rec.train.sparse_update.<table>`` per item table and eager step.
 * Every ``epoch_stats`` entry and JSONL ``epoch`` event carries the pace
   counters, also under a wrapper of ``make_chunk_fn`` that forwards only the
   chunk function's nine arguments and its ``runner``.
@@ -32,6 +33,8 @@ from gru4rec_tpu_torch.utils import cuda_graph, profiling  # noqa: E402
 N_ITEMS = 30
 PHASES = {"sample", "upload", "issue", "nan_wait", "loss_sync"}
 
+# the spans an eager training step, or the captured one, runs in
+STEP_PARENTS = {"gru4rec.train.steps", "gru4rec.train.warmup", "gru4rec.graph.capture"}
 # each span's parent span (None: none), as the program documents them
 PARENT = {
     "gru4rec.fit.schedule": {None},
@@ -45,6 +48,9 @@ PARENT = {
     "gru4rec.train.steps": {"gru4rec.train.chunk"},
     "gru4rec.train.loss": {"gru4rec.train.chunk"},
     "gru4rec.train.warmup": {"gru4rec.train.steps"},
+    "gru4rec.train.sparse_update.Wx0": STEP_PARENTS,
+    "gru4rec.train.sparse_update.E": STEP_PARENTS,
+    "gru4rec.train.sparse_update.Wy": STEP_PARENTS,
     "gru4rec.evaluate": {None, "gru4rec.fit.validate"},
     "gru4rec.evaluate.schedule": {"gru4rec.evaluate"},
     "gru4rec.evaluate.schedule.join": {"gru4rec.evaluate.schedule"},
@@ -169,8 +175,9 @@ def test_spans_carry_their_names_and_nest(tmp_path):
     cpu = {n for n in PARENT if n not in (
         "gru4rec.train.warmup", "gru4rec.graph.capture", "gru4rec.evaluate.warmup",
         "gru4rec.evaluate.replay", "gru4rec.evaluate.release", "gru4rec.serve.upload",
-        "gru4rec.serve.replay")}
-    assert seen == cpu  # the CPU runs every eager path, and captures nothing
+        "gru4rec.serve.replay", "gru4rec.train.sparse_update.E")}
+    # the CPU runs every eager path of this one-hot model, and captures nothing
+    assert seen == cpu
     # fit's validation memoizes its schedule: the first of its calls builds
     # it, the second hits; the standalone call builds its own
     builds = [n for n in names(spans) if n == "gru4rec.evaluate.schedule.join"]
@@ -235,7 +242,12 @@ def test_no_span_per_step(kind):
             frame = eval_frame(m, data, steps)
             spans = traced(lambda: gru4rec_tpu_torch.evaluate(m, frame, batch_size=8))
         assert_nesting(spans)
-        got.append(sorted(names(spans)))
+        per_step = [n for n in names(spans) if n.startswith("gru4rec.train.sparse_update.")]
+        if kind == "chunk":  # one-hot: both item tables, once a live step each
+            live = int((sched[2].sum(axis=1) > 0).sum())
+            assert sorted(per_step) == sorted(["gru4rec.train.sparse_update.Wx0",
+                                               "gru4rec.train.sparse_update.Wy"] * live)
+        got.append(sorted(n for n in names(spans) if n not in per_step))
     assert got[0] == got[1] and got[0]
 
 
