@@ -325,6 +325,65 @@ def make_dist_topk_fn(cfg, n_items: int, k: int, mesh):
     return topk
 
 
+SORT_ROUTES = ("packed", "lexsort")
+# how often each route of :func:`_sort_order` ran: one per schedule built
+schedule_sorts_by_route = dict.fromkeys(SORT_ROUTES, 0)
+
+
+def reset_schedule_sorts() -> None:
+    for r in SORT_ROUTES:
+        schedule_sorts_by_route[r] = 0
+
+
+def _sort_column(col: pd.Series) -> np.ndarray:
+    """``col`` as numpy orders it the way ``sort_values`` does, missing
+    values last: a numeric or datetime numpy column as it is (numpy sorts
+    NaN and NaT last), any other (strings, objects, categories, nullable
+    types) as its ``pd.factorize(sort=True)`` codes."""
+    if isinstance(col.dtype, np.dtype) and col.dtype.kind in "biufmM":
+        return col.to_numpy()
+    codes, uniques = pd.factorize(col, sort=True)
+    return np.where(codes < 0, len(uniques), codes)
+
+
+def _packed_key(cols):
+    """One int64 key that orders the rows as ``cols`` do in turn (the first
+    the major), or None where a column is no integer or the product of the
+    columns' value ranges does not fit in 63 bits."""
+    if not len(cols[0]) or not all(c.dtype.kind in "iu" for c in cols):
+        return None
+    lows = [int(c.min()) for c in cols]
+    spans = [int(c.max()) - lo + 1 for c, lo in zip(cols, lows)]
+    if np.prod(spans, dtype=object) >= 2**63:
+        return None
+    # sum((c - lo) * stride) in int64's wrap-around arithmetic (a uint64
+    # column read as int64 too): exact, since the true key lies in [0, 2**63)
+    key, base = None, 0
+    for c, lo, n in zip(cols, lows, spans):
+        c = c.view(np.int64) if c.dtype == np.uint64 else c
+        if key is None:
+            key = c.astype(np.int64)
+        else:
+            key *= n
+            key += c
+        base = base * n + lo
+    key -= (base + 2**63) % 2**64 - 2**63
+    return key
+
+
+def _sort_order(cols) -> np.ndarray:
+    """The order of the rows sorted by ``cols`` (session, time, item), as
+    ``sort_values`` sorts them: one ``argsort`` of :func:`_packed_key`
+    where it exists, else ``np.lexsort``. Rows that tie on all three hold
+    the same item, so the order among them changes no schedule array."""
+    key = _packed_key(cols)
+    if key is not None:
+        schedule_sorts_by_route["packed"] += 1
+        return np.argsort(key)
+    schedule_sorts_by_route["lexsort"] += 1
+    return np.lexsort(cols[::-1])
+
+
 def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time_key,
                    sched_cache=None):
     """The evaluation schedule of ``test_data``: its events inner-joined to
@@ -339,8 +398,12 @@ def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time
     and an in-place edit keeps ``id`` and length); the frame is pinned in
     the entry, so its ``id`` cannot be reused while the dict holds it.
 
-    A miss builds it in the spans ``gru4rec.evaluate.schedule.join``,
-    ``.sort``, ``.offsets`` and ``.walk``."""
+    A miss builds it from the frame's numpy columns, in the spans
+    ``gru4rec.evaluate.schedule.join`` (``get_indexer`` on the item map),
+    ``.sort`` (:func:`_sort_order`), ``.offsets`` (where the sorted session
+    column changes) and ``.walk``: the arrays a pandas ``merge``,
+    ``sort_values`` and ``groupby`` give. Rows whose session is missing
+    are left out, as ``groupby`` leaves them out."""
     key = None
     if sched_cache is not None:
         cols = (session_key, item_key, time_key)
@@ -354,20 +417,20 @@ def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time
             return hit[1]
     itemidmap = gru_model.itemidmap
     with span("gru4rec.evaluate.schedule.join"):
-        data = pd.merge(
-            test_data,
-            pd.DataFrame({"ItemIdx": itemidmap.values, item_key: itemidmap.index}),
-            on=item_key,
-            how="inner",
-        )
+        pos = itemidmap.index.get_indexer(test_data[item_key].to_numpy())
+        keep = (pos >= 0) & test_data[session_key].notna().to_numpy()
+        rows = slice(None) if keep.all() else np.flatnonzero(keep)
+        item_idx = itemidmap.to_numpy()[pos[rows]].astype(np.int32)
     with span("gru4rec.evaluate.schedule.sort"):
-        data.sort_values([session_key, time_key, item_key], inplace=True)
+        by = [_sort_column(test_data[k])[rows] for k in (session_key, time_key, item_key)]
+        order = _sort_order(by)
     with span("gru4rec.evaluate.schedule.offsets"):
-        offsets = compute_offset(data, session_key)
+        s = by[0][order]
+        # each session's first row, and the end of the last session if any
+        offsets = np.flatnonzero(np.r_[True, s[1:] != s[:-1], len(s) > 0])
     with span("gru4rec.evaluate.schedule.walk"):
-        order = np.arange(len(offsets) - 1, dtype=np.int64)
-        sched = build_schedule(data["ItemIdx"].values.astype(np.int32), offsets, order,
-                               batch_size)
+        sessions_order = np.arange(len(offsets) - 1, dtype=np.int64)
+        sched = build_schedule(item_idx[order], offsets, sessions_order, batch_size)
     if key is not None:
         sched_cache[key] = (test_data, sched)
     return sched
