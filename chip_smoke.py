@@ -104,7 +104,7 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    RetailRocket shape;
 15. serve   — serving on the train phase's fitted flagship model after
    ``scripts/measure_serving.py``: ``predict_topk`` (k = 20) at batch 1, 64
-   and 256 through its captured call (``models/gru4rec.py::_ServeGraph``)
+   and 256 through its captured call (``models/gru4rec.py::_serve_graph``)
    and eagerly in turns (warm median ms per call, device ms per call,
    events/s, host launches per call: at most 6 captured),
    ``predict_next_batch`` once at batch 512; top-k against the full score
@@ -2400,8 +2400,9 @@ def _state(model):
 @contextlib.contextmanager
 def _eval_builds():
     """Counts, while the block runs, the schedules ``evaluate`` builds
-    (``eval/evaluation.py``'s ``build_schedule``) and the evaluation steps
-    it captures (``_EvalGraph`` objects made)."""
+    (``eval/evaluation.py``'s ``build_schedule``) and the evaluation
+    runners it makes (``_EvalGraph`` objects, captured on the card where a
+    call has more than ``WARMUP_STEPS`` steps)."""
     from gru4rec_tpu_torch.eval import evaluation
 
     counts = {"valid_schedules": 0, "valid_graphs": 0}

@@ -12,7 +12,8 @@ graph with four tie-break modes (evaluation.py:62-66), several cutoffs
 accumulated in one pass, a loop over steps, and only the final counters
 read back. The JAX package compiles its steps into one program per chunk;
 on a CUDA device the port captures one step as a CUDA graph and replays it
-per step (:class:`_EvalGraph`), with the eager loop as its plain version.
+per step (:class:`_EvalGraph`); the same object uncaptured is its plain
+version.
 The schedule is memoized across calls on one frame (``_sched_cache``), as
 in JAX.
 
@@ -59,8 +60,7 @@ from gru4rec_tpu_torch.ops.ranking import TIE_MODES, compute_ranks, ranks_from_c
 from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_layout,
                                                   make_row_gather, shard_params)
 from gru4rec_tpu_torch.train.step import StackLayout
-from gru4rec_tpu_torch.utils.cuda_graph import (WARMUP_STEPS, binding, capture,
-                                                capture_stream, run_on)
+from gru4rec_tpu_torch.utils.cuda_graph import WARMUP_STEPS, ReplayLoop, binding
 from gru4rec_tpu_torch.utils.profiling import span
 
 # tiebreaking on a mesh: each model shard dithers from its own generator,
@@ -68,20 +68,24 @@ from gru4rec_tpu_torch.utils.profiling import span
 SHARD_SEED_STRIDE = 0x9E3779B1
 
 
-def _input_rows(params, idx, mode, gather_rows=lambda table, idx: table[idx]):
-    """The rows of the step's inputs, by input mode, from ``gather_rows``."""
-    if mode == "constrained":
-        return {"WyS": gather_rows(params["Wy"], idx)}
-    if mode == "embedding":
-        return {"E": gather_rows(params["E"], idx)}
-    return {"Wx0": gather_rows(params["Wx"][0], idx)}
-
-
 def _on_card(t) -> bool:
     """Whether the step ranks through the ranking kernel: a CUDA tensor.
     On the CPU the step keeps its eager ops, and with them ``compute_ranks``
     as the one place every evaluation ranks there."""
     return t.device.type == "cuda"
+
+
+def _tally(ranks, valid, cutoffs, rec, mrr, H, H_new, H_in) -> None:
+    """A step's counts, in place: the valid lanes' hits at each cutoff into
+    ``rec``, their reciprocal ranks into ``mrr``, and their new hidden state
+    into ``H`` (the others keep ``H_in``)."""
+    vf = valid.float()
+    for k, c in enumerate(cutoffs):
+        hit = (ranks <= c).float() * vf
+        rec[k] += torch.sum(hit)
+        mrr[k] += torch.sum(hit / ranks)
+    for h, hn, ho in zip(H, H_new, H_in):
+        h.copy_(torch.where(valid[:, None], hn, ho))
 
 
 def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
@@ -114,7 +118,7 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
              item_idx=None):
         Wy = params["Wy"]
         H_in = [torch.where(reset[:, None], 0.0, h) for h in H]
-        srows = _input_rows(params, torch.where(valid, in_idx, 0), mode)
+        srows = gru.input_rows(params, torch.where(valid, in_idx, 0), mode)
         b = in_idx.shape[0]
         lanes = torch.arange(b, device=Wy.device)
         if items_subset:
@@ -159,13 +163,7 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
             target = yhat[lanes, torch.where(valid, out_idx, 0)]
             # full catalog: the self-comparison is among the columns
             ranks = compute_ranks(yhat, target, tie_mode)
-        vf = valid.float()
-        for k, c in enumerate(cutoffs):
-            hit = (ranks <= c).float() * vf
-            rec[k] += torch.sum(hit)
-            mrr[k] += torch.sum(hit / ranks)
-        for h, hn, ho in zip(H, H_new, H_in):
-            h.copy_(torch.where(valid[:, None], hn, ho))
+        _tally(ranks, valid, cutoffs, rec, mrr, H, H_new, H_in)
 
     return step
 
@@ -224,7 +222,7 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
         in_l, out_l = in_idx[lo:lo + bl], out_idx[lo:lo + bl]
         valid_l, reset_l = valid[lo:lo + bl], reset[lo:lo + bl]
         H_in = [torch.where(reset_l[:, None], 0.0, h) for h in H]
-        srows = _input_rows(params, torch.where(valid_l, in_l, 0), mode,
+        srows = gru.input_rows(params, torch.where(valid_l, in_l, 0), mode,
                             make_row_gather(r0, rows_local, mesh))
         lanes = torch.arange(bl, device=dev)
         if items_subset:
@@ -275,13 +273,7 @@ def make_dist_eval_step(cfg, n_items: int, cutoffs, tie_mode: str, mesh, batch_s
         counts = mesh.all_reduce(torch.stack([torch.sum(c, dim=1) for c in cmp]), "model")
         ranks = ranks_from_counts(counts[0], counts[1] if len(cmp) > 1 else None,
                                   tie_mode) + self_adj
-        vf = valid_l.float()
-        for k, c in enumerate(cutoffs):
-            hit = (ranks <= c).float() * vf
-            rec[k] += torch.sum(hit)
-            mrr[k] += torch.sum(hit / ranks)
-        for h, hn, ho in zip(H, H_new, H_in):
-            h.copy_(torch.where(valid_l[:, None], hn, ho))
+        _tally(ranks, valid_l, cutoffs, rec, mrr, H, H_new, H_in)
 
     return step
 
@@ -303,7 +295,7 @@ def make_dist_topk_fn(cfg, n_items: int, k: int, mesh):
         Wy = params["Wy"]
         rows_local = Wy.shape[0]
         r0 = mesh.mi * rows_local
-        srows = _input_rows(params, in_idx, mode, make_row_gather(r0, rows_local, mesh))
+        srows = gru.input_rows(params, in_idx, mode, make_row_gather(r0, rows_local, mesh))
         col_valid = (r0 + torch.arange(rows_local, device=Wy.device)) < n_items
         H_new, s = gru.forward(params, srows, list(H), cfg_lin, M=in_idx.shape[0],
                                training=False, full_catalog=True, item_valid=col_valid)
@@ -436,74 +428,54 @@ def _eval_schedule(gru_model, test_data, batch_size, session_key, item_key, time
     return sched
 
 
-class _EvalGraph:
-    """The evaluation step captured as a CUDA graph and replayed per step:
-    the counterpart of JAX's compiled evaluators (``make_eval_chunk_fn`` and,
-    on a mesh, ``make_dist_eval_chunk_fn``: a ``lax.scan`` over the steps
-    with the carry donated).
+class _EvalGraph(ReplayLoop):
+    """The evaluation step over a call's schedule, captured as a CUDA graph
+    and replayed per step where ``capturable``, else its eager plain
+    version: the counterpart of JAX's compiled evaluators
+    (``make_eval_chunk_fn`` and, on a mesh, ``make_dist_eval_chunk_fn``: a
+    ``lax.scan`` over the steps with the carry donated).
 
     It owns the lanes ``H`` (``lanes`` of them: the batch, or a mesh rank's
     block of it), the counters ``rec`` and ``mrr``, the dither generator
-    ``gen`` and two input slots: ``slot``, one step's row of the
+    ``gen`` and two input slots: the loop's ``slot``, one step's row of the
     packed schedule (``train/step.py::StackLayout``: ``in | out | valid |
-    reset``), and ``item_idx``, the subset's item indices. :meth:`run`
-    zeroes the state in place and seeds ``gen``; the first
-    ``WARMUP_STEPS`` steps the object ever runs are eager, on the capture
-    stream (the span ``gru4rec.evaluate.warmup``), the next is captured, and
-    every step from then on copies its row into the slot and replays (a
-    host copy and a graph launch per step; the loop is the span
-    ``gru4rec.evaluate.replay``). ``gen`` is registered with the graph, so
-    each replay draws the tiebreaking dither the eager step would. The graph reads the parameters
-    it was captured on: the caller keys it on their binding
-    (:func:`evaluate`). The capture's pool holds the step's intermediates,
-    among them the (batch, n_items) score matrices; ``pool_bytes`` is its
-    size."""
+    reset``), and ``item_idx``, the subset's item indices. :meth:`count`
+    zeroes the state in place, seeds ``gen`` and runs the schedule through
+    the loop (``utils/cuda_graph.py::ReplayLoop``: the spans
+    ``gru4rec.evaluate.warmup`` and ``.replay``); ``gen`` is registered
+    with the graph, so each replay draws the tiebreaking dither the eager
+    step would. The graph reads the parameters it was captured on: the
+    caller keys it on their binding (:func:`evaluate`). The capture's pool
+    holds the step's intermediates, among them the (batch, n_items) score
+    matrices; ``pool_bytes`` is its size."""
 
     def __init__(self, step, cfg, batch_size: int, lanes: int, n_cutoffs: int, n_subset,
-                 device):
+                 device, capturable: bool):
+        super().__init__(WARMUP_STEPS, warmup_span="gru4rec.evaluate.warmup",
+                         replay_span="gru4rec.evaluate.replay")
         self.step = step
         self.layout = StackLayout(batch_size, 0)
         self.H = gru.init_hidden(cfg, lanes, device)
         self.rec = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
         self.mrr = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
         self.gen = torch.Generator(device=device)
-        self.slot = torch.zeros(self.layout.width, dtype=torch.int32, device=device)
         self.item_idx = (None if n_subset is None else
                          torch.zeros(n_subset, dtype=torch.int32, device=device))
-        self.stream = capture_stream(device)
-        self.graph = None
-        self.warm = 0     # eager steps before the capture
-        self.replays = 0  # replayed steps, over every call
-        self.pool_bytes = None
+        self.place(torch.zeros(self.layout.width, dtype=torch.int32, device=device),
+                   capturable, [self.gen])
 
-    def run(self, params, stack, seed: int, item_idx=None):
+    def count(self, params, stack, seed: int, item_idx=None):
         """Every step of ``stack`` ((T, 4 * batch) int32 on the device):
-        ``(rec, mrr)``, the graph's own counters."""
+        ``(rec, mrr)``, the object's own counters."""
         for t in (*self.H, self.rec, self.mrr):
             t.zero_()
         self.gen.manual_seed(seed)
         if item_idx is not None:
             self.item_idx.copy_(item_idx)
-        T, t = stack.shape[0], 0
-        if self.graph is None:
-            if self.warm < WARMUP_STEPS:
-                with span("gru4rec.evaluate.warmup"):
-                    while self.warm < WARMUP_STEPS and t < T:
-                        run_on(self.stream, lambda: self._step(params, stack[t]))
-                        self.warm += 1
-                        t += 1
-            if t == T:
-                return self.rec, self.mrr
-            self.graph, self.pool_bytes, _ = capture(
-                lambda: self._step(params, self.slot), self.stream, [self.gen])
-        with span("gru4rec.evaluate.replay"):
-            for i in range(t, T):
-                self.slot.copy_(stack[i])
-                self.graph.replay()
-        self.replays += T - t
+        self.run(stack, params)
         return self.rec, self.mrr
 
-    def _step(self, params, row):
+    def fn(self, row, params):
         in_idx, out_idx, valid, reset, _, _ = self.layout.split(row)
         self.step(params, self.H, in_idx, out_idx, valid, reset, self.rec, self.mrr,
                   self.gen, self.item_idx)
@@ -522,11 +494,11 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     agree with the JAX package's in distribution, not event by event.
 
     On a CUDA device the steps replay one captured step (:class:`_EvalGraph`),
-    bit-equal to the eager loop, which is its plain version: the CPU runs
-    that loop, and so do an evaluation of at most ``WARMUP_STEPS`` steps, a
-    gloo ``mesh`` (its collectives run on host threads, which a graph cannot
-    capture) and ``_eager=True``; an NCCL mesh captures its step,
-    collectives included. A graph is captured once per evaluator: the
+    bit-equal to the eager loop of the same object uncaptured, its plain
+    version: the CPU runs that loop, and so do an evaluation of at most
+    ``WARMUP_STEPS`` steps, a gloo ``mesh`` (its collectives run on host
+    threads, which a graph cannot capture) and ``_eager=True``; an NCCL
+    mesh captures its step, collectives included. A graph is captured once per evaluator: the
     config, ``n_items``, the cutoffs, the tie mode, the batch, the subset
     and its length, the mesh's shape and this rank, and the (pointer, shape,
     dtype) of every parameter it reads.
@@ -605,28 +577,22 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
             capturable = mesh.capturable
         # every rank of a mesh has the same schedule, so all decide alike
         graphed = capturable and not _eager and sched.n_steps > WARMUP_STEPS
+        n_subset = None if item_idx is None else len(item_idx)
+        args = (step, cfg, batch_size, lanes, len(cutoffs), n_subset, dev, graphed)
         if graphed:
             key = (json.dumps(cfg.to_dict(), sort_keys=True, default=str),
                    gru_model.n_items, tuple(int(c) for c in cutoffs), mode, batch_size,
-                   items_subset,
-                   None if item_idx is None else len(item_idx),
+                   items_subset, n_subset,
                    None if mesh is None else (tuple(mesh.shape.values()), mesh.rank),
                    binding(params))
             graphs = {} if _graphs is None else _graphs
             if key not in graphs:
-                graphs[key] = _EvalGraph(step, cfg, batch_size, lanes, len(cutoffs),
-                                         None if item_idx is None else len(item_idx), dev)
-            rec, mrr = graphs[key].run(params, stack, seed, item_idx)
+                graphs[key] = _EvalGraph(*args)
+            rec, mrr = graphs[key].count(params, stack, seed, item_idx)
         else:
-            H = gru.init_hidden(cfg, lanes, dev)
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(seed)
-            rec = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
-            mrr = torch.zeros(len(cutoffs), dtype=torch.float32, device=dev)
+            runner = _EvalGraph(*args)
             with span("gru4rec.evaluate.steps"):
-                for t in range(sched.n_steps):
-                    in_idx, out_idx, valid, reset, _, _ = layout.split(stack[t])
-                    step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen, item_idx)
+                rec, mrr = runner.count(params, stack, seed, item_idx)
         combo = torch.cat([rec, mrr])
         if mesh is not None:
             mesh.all_reduce(combo, "data")

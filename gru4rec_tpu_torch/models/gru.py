@@ -45,6 +45,17 @@ def input_mode(cfg: GRU4RecConfig) -> str:
     return "onehot"
 
 
+def input_rows(params, idx, mode: str, gather_rows=lambda table, idx: table[idx]):
+    """The rows of a step's inputs ``idx`` by input mode (``WyS``, ``E`` or
+    ``Wx0``: the srows entry ``forward`` reads), from ``gather_rows`` (a
+    take; a mesh passes its row gather)."""
+    if mode == "constrained":
+        return {"WyS": gather_rows(params["Wy"], idx)}
+    if mode == "embedding":
+        return {"E": gather_rows(params["E"], idx)}
+    return {"Wx0": gather_rows(params["Wx"][0], idx)}
+
+
 def pad_items(n_items: int, multiple: int) -> int:
     """Smallest multiple of ``multiple`` at least 8 rows greater than
     n_items (the JAX package's table layout; the spare rows are zero)."""

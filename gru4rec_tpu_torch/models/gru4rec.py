@@ -11,9 +11,9 @@ and exact resume, ``retrain`` over a grown catalog, a profiler trace, the
 per-chunk NaN abort with a state dump; in-fit validation builds its
 schedule once and keeps its captured step for the call); stateful serving
 through ``predict_next_batch`` and ``predict_topk`` (on the card, captured
-calls replayed, :class:`_ServeGraph`); ``cast_for_serving``; ``savemodel``
-/ ``loadmodel`` (``io/checkpoint.py``, archives shared with the JAX
-package). All three
+calls replayed, :meth:`GRU4Rec._serve_graph`); ``cast_for_serving``;
+``savemodel`` / ``loadmodel`` (``io/checkpoint.py``, archives shared with
+the JAX package). All three
 input modes train, under every ``opt_state_dtype``, including
 ``"bfloat16_sr"``. ``fit``, ``predict_topk`` and ``evaluate`` take a
 ``mesh=`` (``parallel/mesh.py``): every rank of the mesh calls them, lanes
@@ -54,7 +54,7 @@ from gru4rec_tpu_torch.parallel.dist_step import (check_mesh, detect_scratch_lay
                                                   unshard_train_state)
 from gru4rec_tpu_torch.train.step import (TrainState, init_opt_state, init_train_state,
                                           make_chunk_fn, make_generator)
-from gru4rec_tpu_torch.utils.cuda_graph import binding, capture, capture_stream, run_on
+from gru4rec_tpu_torch.utils.cuda_graph import ReplayLoop, binding
 from gru4rec_tpu_torch.utils.logging import get_logger
 from gru4rec_tpu_torch.utils.profiling import Pace, span
 
@@ -113,54 +113,6 @@ class _LaggedLoss:
         if self.events[ci] is not None:
             self.events[ci].synchronize()
         return math.isnan(float(self.host[ci]))
-
-
-class _ServeGraph:
-    """One serving call captured as a CUDA graph: the counterpart of JAX's
-    jitted ``predict_step`` and ``topk_step``.
-
-    ``fn(in_idx, keep)`` is the call: it multiplies the lanes by the keep
-    mask, runs the serving step and writes the new lanes in place, and
-    returns its outputs. Both inputs come from one int64 input slot,
-    ``[item indices | keep mask]``, one host-to-device copy per call. The
-    first ``SERVE_WARMUP_CALLS`` calls run eagerly on the capture stream;
-    the next is captured, and every call from then on copies its inputs
-    into the slot and replays. The outputs then live in the graph's pool
-    and the next replay overwrites them: the caller copies them to the host
-    first. ``bound`` is the binding (``utils/cuda_graph.py``) of the
-    parameters and lanes the graph reads and writes."""
-
-    def __init__(self, fn, batch: int, device, bound):
-        self.fn = fn
-        self.batch = batch
-        self.bound = bound
-        self.slot = torch.zeros(2 * batch, dtype=torch.int64, device=device)
-        self.stream = capture_stream(device)
-        self.graph = None
-        self.out = None
-        self.warm = 0     # eager calls before the capture
-        self.replays = 0
-        self.pool_bytes = None
-
-    def __call__(self, inputs: torch.Tensor):
-        """The outputs of one call on ``inputs``, the slot's (2 * batch,)
-        int64 values on the host."""
-        B = self.batch
-        if self.graph is None:
-            if self.warm < SERVE_WARMUP_CALLS:
-                with span("gru4rec.serve.upload"):
-                    x = inputs.to(self.slot.device)
-                self.warm += 1
-                with span("gru4rec.serve.step"):
-                    return run_on(self.stream, lambda: self.fn(x[:B], x[B:]))
-            self.graph, self.pool_bytes, self.out = capture(
-                lambda: self.fn(self.slot[:B], self.slot[B:]), self.stream)
-        with span("gru4rec.serve.upload"):
-            self.slot.copy_(inputs)
-        with span("gru4rec.serve.replay"):
-            self.graph.replay()
-        self.replays += 1
-        return self.out
 
 
 class GRU4Rec:
@@ -621,12 +573,7 @@ class GRU4Rec:
 
         @torch.no_grad()
         def predict_step(params, H, in_idx, item_idx=None):
-            if mode == "constrained":
-                srows = {"WyS": params["Wy"][in_idx]}
-            elif mode == "embedding":
-                srows = {"E": params["E"][in_idx]}
-            else:
-                srows = {"Wx0": params["Wx"][0][in_idx]}
+            srows = gru.input_rows(params, in_idx, mode)
             if subset:
                 srows["Wy"] = params["Wy"][item_idx]
                 return gru.forward(params, srows, list(H), cfg, M=in_idx.shape[0],
@@ -690,31 +637,46 @@ class GRU4Rec:
 
     def _serve_graph(self, key, session_ids, input_item_ids, params, make_call):
         """The outputs of the captured serving call ``key`` on this
-        request. ``make_call()`` builds the call, ``call(params, H,
+        request: the counterpart of JAX's jitted ``predict_step`` and
+        ``topk_step``. ``make_call()`` builds the call, ``call(params, H,
         in_idx)``: it updates the lanes ``H`` in place and returns the
-        call's outputs; the graph runs it after the lane reset. The graph is
-        captured again when the parameters or lanes it is bound to change (a
-        new lane width, ``cast_for_serving``, ``loadmodel``, a ``fit`` that
-        grows the tables, the device copy or the shards of ``fit(mesh=)``'s
-        parameters)."""
+        call's outputs; the graph runs it after the lane reset (a multiply
+        by the keep mask). Both inputs come from one int64 slot, ``[item
+        indices | keep mask]``, one host-to-device copy per call. The call
+        is a ``utils/cuda_graph.py::ReplayLoop``: the first
+        ``SERVE_WARMUP_CALLS`` calls run eagerly on the capture stream
+        (``gru4rec.serve.step``), the next is captured, and every call from
+        then on replays (``gru4rec.serve.replay``); a replay's outputs live
+        in the graph's pool, and the next replay overwrites them, so the
+        caller copies them to the host first. The graph is captured again
+        when the parameters or lanes it is bound to change (its ``bound``:
+        a new lane width, ``cast_for_serving``, ``loadmodel``, a ``fit``
+        that grows the tables, the device copy or the shards of
+        ``fit(mesh=)``'s parameters)."""
         bound = (self.n_items, binding(params, self.H))
         graph = self._serve_graphs.get(key)
         if graph is None or graph.bound != bound:
             call = make_call()
             H = list(self.H)
+            B = len(H[0])
 
-            def fn(in_idx, keep):
+            def fn(row):
                 for h in H:
-                    h.mul_(keep[:, None])
-                return call(params, H, in_idx)
+                    h.mul_(row[B:, None])
+                return call(params, H, row[:B])
 
-            graph = _ServeGraph(fn, len(H[0]), self.device, bound)
+            graph = ReplayLoop(SERVE_WARMUP_CALLS, fn, "gru4rec.serve.step",
+                               "gru4rec.serve.replay").place(
+                torch.zeros(2 * B, dtype=torch.int64, device=self.device), True)
+            graph.bound = bound
             self._serve_graphs[key] = graph
         with span("gru4rec.serve.keep"):
             keep = self._keep_mask(session_ids)
         with span("gru4rec.serve.lookup"):
             idx = self._item_index_array(input_item_ids)
-        return graph(torch.from_numpy(np.concatenate([idx, keep.astype(np.int64)])))
+        with span("gru4rec.serve.upload"):
+            graph.slot.copy_(torch.from_numpy(np.concatenate([idx, keep.astype(np.int64)])))
+        return graph.run([graph.slot])
 
     def predict_next_batch(self, session_ids, input_item_ids,
                            predict_for_item_ids=None, batch: int = 100):
@@ -723,7 +685,7 @@ class GRU4Rec:
         are reset. Returns a DataFrame of scores, items x events.
 
         On a CUDA device the full-catalog call replays one captured call
-        per batch width (``_ServeGraph``). The subset call stays eager: its
+        per batch width (:meth:`_serve_graph`). The subset call stays eager: its
         item list has any length from call to call."""
         if self.error_during_train:
             raise Exception("Training ended with an error; model is unusable.")
@@ -758,7 +720,7 @@ class GRU4Rec:
         of raw item IDs, best first, and a float array (batch, k).
 
         On a CUDA device the call replays one captured call per (batch, k)
-        (``_ServeGraph``: the lane reset, the step and ``torch.topk``), as
+        (:meth:`_serve_graph`: the lane reset, the step and ``torch.topk``), as
         JAX compiles ``topk_step`` per (batch, k).
 
         The call is the span ``gru4rec.serve``, with the children
@@ -784,23 +746,24 @@ class GRU4Rec:
         with span("gru4rec.serve"):
             k = min(int(k), self.n_items)
             self._ensure_lanes(batch)
-            if self._graphed(mesh):
-                if mesh is None:
-                    key, params = ("topk", batch, k), self._serving_params()
+            if mesh is None:
+                key, dev, params = ("topk", batch, k), self.device, self._serving_params()
 
-                    def make_call():
-                        return self._serving_call(
-                            lambda y: torch.topk(y, k, dim=1, sorted=True))
-                else:
+                def make_call():
+                    return self._serving_call(
+                        lambda y: torch.topk(y, k, dim=1, sorted=True))
+            else:
+                key, dev = ("topk", batch, k, mesh), mesh.device
+                params = self._mesh_shards(mesh)
+
+                def make_call():
+                    return self._mesh_topk_call(
+                        make_dist_topk_fn(self.config, self.n_items, k, mesh), batch, mesh)
+            if self._graphed(mesh):
+                if mesh is not None:
                     for old in [key for key in self._serve_graphs
                                 if len(key) == 4 and key[3] is not mesh]:
                         del self._serve_graphs[old]
-                    key, params = ("topk", batch, k, mesh), self._mesh_shards(mesh)
-
-                    def make_call():
-                        return self._mesh_topk_call(
-                            make_dist_topk_fn(self.config, self.n_items, k, mesh), batch,
-                            mesh)
                 scores, idx = self._serve_graph(key, session_ids, input_item_ids, params,
                                                 make_call)
             else:
@@ -809,14 +772,13 @@ class GRU4Rec:
                 with span("gru4rec.serve.lookup"):
                     in_idx = self._item_indices(input_item_ids)
                 with span("gru4rec.serve.step"):
-                    if mesh is not None:
-                        scores, idx = self._predict_topk_dist(in_idx, k, batch, mesh)
-                    else:
-                        H_new, yhat = self._build_predict_fn(False)(self._serving_params(),
-                                                                    self.H, in_idx)
-                        for h, hn in zip(self.H, H_new):
-                            h.copy_(hn)
-                        scores, idx = torch.topk(yhat, k, dim=1, sorted=True)
+                    # the lanes go to the call's device (a mesh's may be
+                    # another) and come back
+                    H = [h.to(dev) for h in self.H]
+                    scores, idx = make_call()(params, H, in_idx.to(dev))
+                    for h, hm in zip(self.H, H):
+                        if hm is not h:
+                            h.copy_(hm)
             with span("gru4rec.serve.fetch"):
                 idx, scores = idx.cpu().numpy(), scores.cpu().numpy()
             with span("gru4rec.serve.idmap"):
@@ -827,8 +789,9 @@ class GRU4Rec:
             return items.reshape(idx.shape), scores
 
     def _serving_call(self, finish):
-        """The single-device serving call for :meth:`_serve_graph`: the
-        full-catalog step, the lanes written back, then ``finish(scores)``."""
+        """The single-device serving call, captured (:meth:`_serve_graph`)
+        or eager: the full-catalog step, the lanes written back, then
+        ``finish(scores)``."""
         step = self._build_predict_fn(False)
 
         def call(params, H, in_idx):
@@ -864,18 +827,6 @@ class GRU4Rec:
             return mesh.all_gather(scores, "data"), mesh.all_gather(ids, "data")
 
         return call
-
-    def _predict_topk_dist(self, in_idx, k, batch, mesh):
-        """:meth:`predict_topk`'s step on ``mesh``, eagerly: ``(scores,
-        ids)`` of the whole batch on every rank."""
-        call = self._mesh_topk_call(make_dist_topk_fn(self.config, self.n_items, k, mesh),
-                                    batch, mesh)
-        H = [h.to(mesh.device) for h in self.H]
-        scores, ids = call(self._mesh_shards(mesh), H, in_idx.to(mesh.device))
-        for h, hm in zip(self.H, H):
-            if hm is not h:
-                h.copy_(hm)
-        return scores, ids
 
     # ------------------------------------------------------------------ #
     def cast_for_serving(self, dtype="bfloat16") -> "GRU4Rec":

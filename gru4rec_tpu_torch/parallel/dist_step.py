@@ -50,19 +50,16 @@ accepts the canonical row count only.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from gru4rec_tpu_torch.config import GRU4RecConfig
 from gru4rec_tpu_torch.models import gru
 from gru4rec_tpu_torch.ops.losses import get_loss
-from gru4rec_tpu_torch.ops.sampling import draw_negatives
-from gru4rec_tpu_torch.ops.sr import step_seeds
 from gru4rec_tpu_torch.parallel.mesh import Mesh, local_block, param_specs, state_specs
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
-from gru4rec_tpu_torch.train.step import (DENSE_GROUPS, SR_TABLE_SALT, StackLayout,
-                                          TrainState, _EagerSteps, _StepGraph, merge_dense,
-                                          run_steps, split_params, sparse_table_names)
+from gru4rec_tpu_torch.train.step import (DENSE_GROUPS, StackLayout, TrainState,
+                                          build_chunk_fn, merge_dense, split_params,
+                                          sparse_table_names)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -174,16 +171,13 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh, _eager: boo
     state (:func:`shard_train_state`) and the ``*_c`` the global (chunk, B)
     host schedule. Every rank returns the global loss sum and event count.
 
-    As on one device, a chunk goes up as one packed int32 stack
-    (``train/step.py::StackLayout``): the rank's lane block of the schedule
-    (JAX's ``sched_spec = P(None, "data")``), the chunk's negatives and one
-    stochastic-rounding seed per sparse table. A step reads its row; the
-    live count ``Mf`` is the gathered lanes' validity summed on the device.
-    On a capturable mesh (NCCL, ``Mesh.capturable``) the steps replay one
-    captured step, collectives included (``train/step.py::_StepGraph``,
-    ``chunk_fn.runner``); the state's tensors must stay the same from the
-    first chunk on. A gloo mesh, the CPU and ``_eager=True`` run the eager
-    loop, the graph's plain version (``chunk_fn.runner`` is then None)."""
+    The chunk is the single-device one (``train/step.py::build_chunk_fn``:
+    its spans, pace counters, runner and ``chunk_fn.runner``) with the
+    rank's lane block of the schedule in the stack (JAX's ``sched_spec =
+    P(None, "data")``) and this step, whose live count ``Mf`` is the
+    gathered lanes' validity summed on the device. On a capturable mesh
+    (NCCL, ``Mesh.capturable``) the step is captured with its collectives;
+    a gloo mesh, like ``_eager=True``, runs it uncaptured."""
     check_mesh(mesh)
     mode = gru.input_mode(cfg)
     loss_fn = get_loss(cfg.loss, cfg.n_sample, cfg.smoothing, cfg.bpreg)
@@ -288,30 +282,5 @@ def make_dist_chunk_fn(cfg: GRU4RecConfig, n_items: int, mesh: Mesh, _eager: boo
                 h.copy_(torch.where(valid_l[:, None], hn.detach(), ho))
         return cost * Mf
 
-    runner = None if _eager or not mesh.capturable else _StepGraph(step_fn, layout.width)
-    eager = _EagerSteps(step_fn)
-
-    def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1, logp0,
-                 neg=None, sr_seeds=None):
-        chunk = in_c.shape[0]
-        dev = state.params["Wy"].device
-        if n_sample > 0 and neg is None:
-            neg = draw_negatives(state.gen, samp1, chunk, n_sample, n_items,
-                                 cfg.sample_alpha, cfg.sampler)
-        seeds = None
-        if layout.seed_names:
-            seeds = sr_seeds if sr_seeds is not None else {
-                k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
-                              SR_TABLE_SALT[k]) for k in layout.seed_names}
-        stack = layout.pack(*(a[:, lo:lo + bl] for a in (in_c, out_c, valid_c, reset_c)),
-                            neg, seeds, dev)
-        # the gate reads the global schedule: every rank replays or skips a
-        # step together, so no rank leaves a collective unmatched
-        counts = valid_c.sum(axis=1)
-        loss = run_steps(eager if runner is None else runner, state, stack, counts, logp0,
-                         dev)
-        state.step += chunk
-        return loss, int(counts.sum())
-
-    chunk_fn.runner = runner
-    return chunk_fn
+    return build_chunk_fn(cfg, n_items, layout, step_fn, not _eager and mesh.capturable,
+                          slice(lo, lo + bl))

@@ -7,11 +7,13 @@ CUDA graph: on a CUDA device one training step is captured once per chunk
 function (once per ``fit`` call; the step's shapes are fixed) and replayed
 once per step that has a live lane, so the host issues a copy and a graph
 launch per step instead of the step's few hundred launches
-(:class:`_StepGraph`). The scan's per-step inputs are one packed int32
-stack per chunk (:class:`StackLayout`), uploaded once; negatives for the
-whole chunk are drawn in one call, as there. The eager loop over the same
-step is the graph's plain version: the CPU runs it, and on a card it is
-reached only through ``make_chunk_fn(..., _eager=True)``.
+(:class:`_StepRunner`, a ``utils/cuda_graph.py::ReplayLoop``). The scan's
+per-step inputs are one packed int32 stack per chunk (:class:`StackLayout`),
+uploaded once; negatives for the whole chunk are drawn in one call, as
+there. The eager loop over the same
+step, the same runner uncaptured, is the graph's plain version: the CPU
+runs it, and on a card it is reached only through ``make_chunk_fn(...,
+_eager=True)``.
 
 Gradients w.r.t. the item tables stay row-sparse: the gathered rows are
 leaf tensors that autograd differentiates (the reference's sampled-params
@@ -43,8 +45,7 @@ from gru4rec_tpu_torch.ops.losses import get_loss
 from gru4rec_tpu_torch.ops.sr import MASK32, step_seeds
 from gru4rec_tpu_torch.ops.sampling import draw_negatives
 from gru4rec_tpu_torch.train.optimizers import SENTINEL, make_optimizer
-from gru4rec_tpu_torch.utils.cuda_graph import (WARMUP_STEPS, capture, capture_stream,
-                                                leaves, run_on)
+from gru4rec_tpu_torch.utils.cuda_graph import WARMUP_STEPS, ReplayLoop, binding
 from gru4rec_tpu_torch.utils.profiling import Pace, span
 
 DENSE_GROUPS = ("Wx", "Wh", "Wrz", "Bh")
@@ -165,127 +166,118 @@ class StackLayout:
                 neg, seeds or None)
 
 
-def _state_tensors(state: TrainState, logp0) -> List[torch.Tensor]:
-    """Every tensor a captured step reads or writes in place."""
-    return [logp0] + leaves(state.H, state.params, state.opt_state)
-
-
-class _StepGraph:
-    """One training step captured as a CUDA graph and replayed per step.
-
-    The first ``WARMUP_STEPS`` live steps run eagerly on the capture stream
-    (the span ``gru4rec.train.warmup``); the next is captured (capture
-    executes nothing) and every live step from then on copies its stack row
-    into the graph's input slot and replays. The graph reads and writes the
-    state's tensors in place, adds the step's weighted loss to a device
-    scalar, and draws its dropout masks from ``state.gen``, registered with
-    the graph so that every replay draws the masks the eager step would
-    (the generator's offset advances by the step's draws per replay). A failed capture raises, and
-    so does a chunk whose state tensors are not the ones captured. The
-    stream, the capture and the warm-up count are ``utils/cuda_graph.py``'s,
-    which every graph of the port shares.
-
-    The launch counters count replays (``utils/cuda_graph.py``'s
-    ``CountedGraph``; the captured step's launches: ``graph.tally``).
+class _StepRunner(ReplayLoop):
+    """A chunk function's training steps (``chunk_fn.runner``), on the first
+    chunk's device, captured there where ``may_capture`` and it is a CUDA
+    device. Each step adds its weighted loss to the device scalar ``loss``.
+    The graph reads and writes the state's tensors in place and draws its
+    dropout masks from ``state.gen``, registered with it (the generator's
+    offset advances by the step's draws per replay, so every replay draws
+    the eager step's masks). A chunk whose state tensors or generator are
+    not the captured ones raises. The warm-up is the span
+    ``gru4rec.train.warmup``; a replay opens none, and adds the captured
+    step's launches (``graph.tally``) to the launch counters.
     """
 
-    def __init__(self, step_fn, width: int):
+    def __init__(self, step_fn, width: int, may_capture: bool):
+        super().__init__(WARMUP_STEPS, warmup_span="gru4rec.train.warmup")
         self.step_fn = step_fn
         self.width = width
-        self.slot = self.loss = self.stream = None  # made on the first chunk's device
-        self.graph = None
-        self.warm = 0     # eager steps before the capture
-        self.replays = 0  # replayed steps
-        self.captured = None  # (generator, data_ptr of each state tensor)
-        self.pool_bytes = None  # device memory the capture reserved
-
-    def begin(self, state: TrainState, logp0, device: torch.device) -> None:
-        if self.slot is None:
-            self.slot = torch.zeros(self.width, dtype=torch.int32, device=device)
-            self.loss = torch.zeros((), dtype=torch.float32, device=device)
-            self.stream = capture_stream(device)
-        if self.captured is not None and (
-                state.gen is not self.captured[0]
-                or [t.data_ptr() for t in _state_tensors(state, logp0)] != self.captured[1]):
-            raise RuntimeError("the training state's tensors are not the ones the step "
-                               "graph was captured on: rebind them before the first "
-                               "chunk, or update them in place")
-        self.loss.zero_()
-
-    def run(self, state: TrainState, stack, rows, logp0) -> None:
-        """The steps ``rows`` (live row indices of ``stack``), in order."""
-        if not rows:
-            return
-        i = 0
-        if self.graph is None:
-            if self.warm < WARMUP_STEPS:
-                with span("gru4rec.train.warmup"):
-                    while self.warm < WARMUP_STEPS and i < len(rows):
-                        self._eager(state, stack[rows[i]], logp0)
-                        i += 1
-            if i == len(rows):
-                return
-            self._capture(state, logp0)
-        for t in rows[i:]:
-            self.slot.copy_(stack[t])
-            self.graph.replay()
-        self.replays += len(rows) - i
-
-    def end(self) -> torch.Tensor:
-        return self.loss.clone()
-
-    def _eager(self, state, row, logp0) -> None:
-        run_on(self.stream, lambda: self.loss.add_(self.step_fn(state, row, logp0)))
-        self.warm += 1
-
-    def _capture(self, state, logp0) -> None:
-        self.graph, self.pool_bytes, _ = capture(
-            lambda: self.loss.add_(self.step_fn(state, self.slot, logp0)), self.stream,
-            [state.gen])
-        self.captured = (state.gen, [t.data_ptr() for t in _state_tensors(state, logp0)])
-
-
-class _EagerSteps:
-    """The eager loop over a chunk's live steps, :class:`_StepGraph`'s
-    plain version, with its interface."""
-
-    def __init__(self, step_fn):
-        self.step_fn = step_fn
+        self.may_capture = may_capture
         self.loss = None
 
-    def begin(self, state, logp0, device) -> None:
-        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+    def fn(self, row, state: TrainState, logp0):
+        return self.loss.add_(self.step_fn(state, row, logp0))
 
-    def run(self, state, stack, rows, logp0) -> None:
-        for t in rows:
-            self.loss = self.loss + self.step_fn(state, stack[t], logp0)
+    def start(self, state: TrainState, logp0) -> None:
+        """Ready the runner for a chunk of ``state``: placed on its device at
+        the first chunk, the binding checked once captured, the loss
+        zeroed."""
+        if self.slot is None:
+            dev = state.params["Wy"].device
+            self.place(torch.zeros(self.width, dtype=torch.int32, device=dev),
+                       self.may_capture and dev.type == "cuda")
+            self.loss = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.stream is not None:
+            bound = binding(logp0, state.H, state.params, state.opt_state, state.gen)
+            if self.graph is None:
+                self.bound, self.generators = bound, (state.gen,)
+            elif bound != self.bound:
+                raise RuntimeError("the training state's tensors are not the ones the step "
+                                   "graph was captured on: rebind them before the first "
+                                   "chunk, or update them in place")
+        self.loss.zero_()
 
-    def end(self) -> torch.Tensor:
-        return self.loss
 
-
-def run_steps(runner, state: TrainState, stack, counts, logp0, device) -> torch.Tensor:
+def run_steps(runner: _StepRunner, state: TrainState, stack, counts, logp0) -> torch.Tensor:
     """The live steps of a chunk (``counts`` > 0; a fully-padded step is a
     no-op, the JAX package's ``any_valid`` gate: no update of any parameter
-    or optimizer state) by ``runner`` (:class:`_StepGraph` or
-    :class:`_EagerSteps`), in the spans ``gru4rec.train.steps`` and
-    ``gru4rec.train.loss`` (the read of the chunk's loss sum, a device
-    scalar, which it returns); counted into ``state.pace`` when set
-    (``issue``, and on a CUDA device the chunk's timing events)."""
+    or optimizer state) by ``runner``, in the spans
+    ``gru4rec.train.steps`` and ``gru4rec.train.loss`` (the read of the
+    chunk's loss sum, a device scalar, which it returns); counted into
+    ``state.pace`` when set (``issue``, and on a CUDA device the chunk's
+    timing events)."""
     rows = np.flatnonzero(counts > 0).tolist()
     pace = state.pace
     with span("gru4rec.train.steps"):
         if pace is not None:
             pace.begin_steps()
-        runner.begin(state, logp0, device)
-        runner.run(state, stack, rows[:-1], logp0)
+        runner.start(state, logp0)
+        runner.run(stack, state, logp0, order=rows[:-1])
         if pace is not None:
             pace.before_last_step()
-        runner.run(state, stack, rows[-1:], logp0)
+        runner.run(stack, state, logp0, order=rows[-1:])
         if pace is not None:
             pace.end_steps()
     with span("gru4rec.train.loss"):
-        return runner.end()
+        return runner.loss.clone()
+
+
+def build_chunk_fn(cfg: GRU4RecConfig, n_items: int, layout: StackLayout, step_fn,
+                   may_capture: bool, lanes=slice(None)):
+    """The chunk function of :func:`make_chunk_fn` and, on a mesh,
+    ``parallel/dist_step.py::make_dist_chunk_fn`` around their
+    ``step_fn(state, row, logp0)``: the chunk's negative draw, its SR
+    seeds, one upload of the stack with the schedule's lanes ``lanes``, the
+    live-step gate and :func:`run_steps` on one :class:`_StepRunner`. The
+    gate reads the whole (global) schedule, so the ranks of a mesh replay or
+    skip each step together. ``chunk_fn.runner`` is the runner where
+    ``may_capture``, else None."""
+    runner = _StepRunner(step_fn, layout.width, may_capture)
+
+    def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1,
+                 logp0, neg=None, sr_seeds=None):
+        chunk = in_c.shape[0]
+        dev = state.params["Wy"].device
+        pace = state.pace
+        with span("gru4rec.train.chunk"):
+            if layout.n_sample > 0 and neg is None:
+                since = time.perf_counter()
+                with span("gru4rec.train.sample"):
+                    neg = draw_negatives(state.gen, samp1, chunk, layout.n_sample, n_items,
+                                         cfg.sample_alpha, cfg.sampler)
+                if pace is not None:
+                    pace.add("sample", since)
+            seeds = None
+            if layout.seed_names:
+                seeds = sr_seeds if sr_seeds is not None else {
+                    k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
+                                  SR_TABLE_SALT[k]) for k in layout.seed_names}
+            # one upload per chunk; a blocking copy per step would drain the
+            # stream every step
+            since = time.perf_counter()
+            with span("gru4rec.train.upload"):
+                stack = layout.pack(*(a[:, lanes] for a in (in_c, out_c, valid_c, reset_c)),
+                                    neg, seeds, dev)
+            if pace is not None:
+                pace.add("upload", since)
+            counts = valid_c.sum(axis=1)
+            loss = run_steps(runner, state, stack, counts, logp0)
+            state.step += chunk
+            return loss, int(counts.sum())
+
+    chunk_fn.runner = runner if may_capture else None
+    return chunk_fn
 
 
 def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
@@ -304,11 +296,11 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
     the returned loss sum weights steps by live-lane count (a device
     scalar).
 
-    On a CUDA device the steps replay one captured step (:class:`_StepGraph`,
+    On a CUDA device the steps replay one captured step (:class:`_StepRunner`,
     ``chunk_fn.runner``); the state's tensors must stay the same from the
-    first chunk on. ``_eager=True`` runs the eager loop there instead, the
-    graph's plain version (``chunk_fn.runner`` is then None), as the CPU
-    always does.
+    first chunk on. ``_eager=True`` runs the same runner uncaptured there
+    instead, the graph's plain version (``chunk_fn.runner`` is then None),
+    as the CPU always does.
 
     A call is the span ``gru4rec.train.chunk``, with the children
     ``gru4rec.train.sample`` (the negative draw), ``.upload`` (the stack),
@@ -401,39 +393,4 @@ def make_chunk_fn(cfg: GRU4RecConfig, n_items: int, _eager: bool = False):
                 h.copy_(torch.where(valid_d[:, None], hn.detach(), ho))
         return cost.detach() * Mf
 
-    runner = None if _eager else _StepGraph(step_fn, layout.width)
-    eager = _EagerSteps(step_fn)
-
-    def chunk_fn(state: TrainState, in_c, out_c, valid_c, reset_c, samp1,
-                 logp0, neg=None, sr_seeds=None):
-        chunk = in_c.shape[0]
-        dev = state.params["Wy"].device
-        pace = state.pace
-        with span("gru4rec.train.chunk"):
-            if n_sample > 0 and neg is None:
-                since = time.perf_counter()
-                with span("gru4rec.train.sample"):
-                    neg = draw_negatives(state.gen, samp1, chunk, n_sample, n_items,
-                                         cfg.sample_alpha, cfg.sampler)
-                if pace is not None:
-                    pace.add("sample", since)
-            seeds = None
-            if layout.seed_names:
-                seeds = sr_seeds if sr_seeds is not None else {
-                    k: step_seeds(cfg.seed, np.arange(state.step, state.step + chunk),
-                                  SR_TABLE_SALT[k]) for k in layout.seed_names}
-            # one upload per chunk; a blocking copy per step would drain the
-            # stream every step
-            since = time.perf_counter()
-            with span("gru4rec.train.upload"):
-                stack = layout.pack(in_c, out_c, valid_c, reset_c, neg, seeds, dev)
-            if pace is not None:
-                pace.add("upload", since)
-            counts = valid_c.sum(axis=1)
-            graphed = runner is not None and dev.type == "cuda"
-            loss = run_steps(runner if graphed else eager, state, stack, counts, logp0, dev)
-            state.step += chunk
-            return loss, int(counts.sum())
-
-    chunk_fn.runner = runner
-    return chunk_fn
+    return build_chunk_fn(cfg, n_items, layout, step_fn, not _eager)

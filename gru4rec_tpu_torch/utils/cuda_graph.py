@@ -2,9 +2,11 @@
 
 The JAX package compiles its training chunk, its evaluation chunk and its
 two serving steps into device programs. On a CUDA device the port captures
-each as a CUDA graph (``train/step.py::_StepGraph``,
-``eval/evaluation.py::_EvalGraph``, ``models/gru4rec.py::_ServeGraph``) and
-keeps the eager code as the graph's plain version. They share:
+one step of each as a CUDA graph and replays it per step: the three runners
+(``train/step.py::_StepRunner``, ``eval/evaluation.py::_EvalGraph`` and the
+serving calls of ``models/gru4rec.py``) are :class:`ReplayLoop` objects,
+and the same objects, uncaptured, are the graphs' plain versions. They
+share:
 
 * one side stream per device for every warm-up and capture
   (:func:`capture_stream`);
@@ -14,9 +16,12 @@ keeps the eager code as the graph's plain version. They share:
   and measures the bytes the graph's private pool reserved, and returns a
   :class:`CountedGraph`, whose replays keep the launch counters true (the
   span ``gru4rec.graph.capture``);
+* :class:`ReplayLoop`, the life cycle of one captured step: eager warm-up
+  steps, one capture, then a copy into the input slot and a replay per
+  step;
 * :func:`binding`, the (pointer, shape, dtype) of every tensor a graph
-  reads or writes outside its pool: a graph replays only for the binding
-  it was captured on.
+  reads or writes outside its pool, and the generators it draws from: a
+  graph replays only for the binding it was captured on.
 
 A captured call must not wait on the host: no boolean-mask index,
 ``nonzero`` or ``.item()`` inside it, and no ``dist.barrier``. A mesh step
@@ -27,6 +32,7 @@ with a barrier and the eager warm-up steps run every collective once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import Dict
 
@@ -34,9 +40,9 @@ import torch
 
 from gru4rec_tpu_torch.utils.profiling import span
 
-# Eager steps on the capture stream before a step is captured (PyTorch sets
-# up cuBLAS workspaces and autograd's streams on first use); they are real
-# steps, never throwaway ones.
+# Eager steps on the capture stream before a training or evaluation step is
+# captured (PyTorch sets up cuBLAS workspaces and autograd's streams on first
+# use); they are real steps, never throwaway ones.
 WARMUP_STEPS = 3
 
 # The side stream of every warm-up and capture on a device. cuBLAS keeps a
@@ -155,7 +161,88 @@ def leaves(*trees):
 
 
 def binding(*trees):
-    """(data_ptr, shape, dtype) of every tensor of ``trees``: two equal
-    bindings put the same tensors at the same addresses, so a graph
-    captured on one replays correctly on the other."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in leaves(*trees))
+    """(data_ptr, shape, dtype) of every tensor of ``trees``, and every
+    ``torch.Generator`` among them as itself (compared by identity): two
+    equal bindings put the same tensors at the same addresses and draw from
+    the same generators, so a graph captured on one replays correctly on
+    the other."""
+    return tuple(t if isinstance(t, torch.Generator) else
+                 (t.data_ptr(), tuple(t.shape), t.dtype) for t in leaves(*trees))
+
+
+def _span(name):
+    return span(name) if name else contextlib.nullcontext()
+
+
+class ReplayLoop:
+    """One step run over the rows of a call, eagerly or as one captured CUDA
+    graph replayed per row.
+
+    ``fn(row, *args)`` is the step; a subclass may define it as a method
+    instead (a step stored on its own loop would make a reference cycle,
+    which keeps a dropped graph's pool until the collector runs).
+    :meth:`place` gives the loop its input slot, shaped as one row, and says
+    whether it captures. Where it does, the first ``warmup`` steps the
+    object ever runs go eagerly on the capture stream (the span
+    ``warmup_span``), the next is captured on the slot with ``generators``
+    registered (every replay draws what the eager step would draw next),
+    and every step from then on copies its row into the slot and replays
+    (the span ``replay_span``). Where it does not (the CPU, a gloo mesh,
+    ``_eager``), every step runs eagerly on the current stream, in no span.
+
+    ``graph`` (a :class:`CountedGraph`), ``pool_bytes`` and ``out`` (the
+    captured step's result, in the graph's pool: the next replay overwrites
+    it) are None until the capture; ``warm`` counts the eager steps before
+    it, ``replays`` the replayed ones. ``bound`` is the :func:`binding` the
+    caller recorded for the graph; what a mismatch means is the caller's to
+    decide."""
+
+    def __init__(self, warmup: int, fn=None, warmup_span=None, replay_span=None):
+        if fn is not None:
+            self.fn = fn
+        self.warmup = warmup
+        self.spans = (warmup_span, replay_span)
+        self.slot = self.stream = None
+        self.generators = ()
+        self.graph = self.pool_bytes = self.out = self.bound = None
+        self.warm = 0
+        self.replays = 0
+
+    def place(self, slot: torch.Tensor, capturable: bool, generators=()) -> "ReplayLoop":
+        self.slot = slot
+        self.stream = capture_stream(slot.device) if capturable else None
+        self.generators = tuple(generators)
+        return self
+
+    def run(self, rows, *args, order=None):
+        """``fn(rows[t], *args)`` for ``t`` in ``order`` (every row by
+        default); a row that is the slot itself is not copied. Returns the
+        last eager step's result, or ``out`` once the step is captured."""
+        steps = range(len(rows)) if order is None else order
+        if self.stream is None:
+            out = None
+            for t in steps:
+                out = self.fn(rows[t], *args)
+            return out
+        i, n, out = 0, len(steps), self.out
+        if self.graph is None and self.warm < self.warmup and n:
+            with _span(self.spans[0]):
+                while self.warm < self.warmup and i < n:
+                    row = rows[steps[i]]
+                    out = run_on(self.stream, lambda: self.fn(row, *args))
+                    self.warm += 1
+                    i += 1
+        if i == n:
+            return out
+        if self.graph is None:
+            self.graph, self.pool_bytes, self.out = capture(
+                lambda: self.fn(self.slot, *args), self.stream, self.generators)
+        slot, graph = self.slot, self.graph
+        with _span(self.spans[1]):
+            for t in steps[i:]:
+                row = rows[t]
+                if row is not slot:
+                    slot.copy_(row)
+                graph.replay()
+        self.replays += n - i
+        return self.out

@@ -192,12 +192,11 @@ def task_clip(mesh, inputs, out, out_dir):
 
 @contextlib.contextmanager
 def _injected(draws):
-    """Both chunk functions' negative draw patched with the rows of
+    """The negative draw both chunk functions share patched with the rows of
     ``draws``, one per call (chunk_size 1: one call per step); yields the
     list of calls."""
     import torch
 
-    from gru4rec_tpu_torch.parallel import dist_step
     from gru4rec_tpu_torch.train import step as tstep
 
     calls = []
@@ -207,12 +206,12 @@ def _injected(draws):
         calls.append(None)
         return torch.from_numpy(draws[len(calls) - 1:len(calls)])
 
-    saved = tstep.draw_negatives, dist_step.draw_negatives
-    tstep.draw_negatives = dist_step.draw_negatives = injected
+    saved = tstep.draw_negatives
+    tstep.draw_negatives = injected
     try:
         yield calls
     finally:
-        tstep.draw_negatives, dist_step.draw_negatives = saved
+        tstep.draw_negatives = saved
 
 
 def task_fit(mesh, inputs, out, out_dir):
