@@ -2158,9 +2158,9 @@ def _eval_lanes():
     def recording(*args, **kw):
         step = make(*args, **kw)
 
-        def wrapped(params, H, *rest):
+        def wrapped(params, H, *rest, **kw):
             seen.append(H)
-            return step(params, H, *rest)
+            return step(params, H, *rest, **kw)
 
         return wrapped
 
@@ -2181,18 +2181,23 @@ def phase_eval_graph(flagship, smi_line):
     512 and cutoffs 1, 5, 10, 20. In all four tie modes, on the full catalog
     and on a subset of ``EVAL_GRAPH_SUBSET`` items: Recall, MRR and the
     final lanes bit-equal (``max_abs_err`` 0.0), every step after the
-    warm-up replayed. Then, in the standard mode, three ways in turns: the
+    warm-up replayed; the scores table rounded to bfloat16 once a call
+    (``evaluation.table_casts``, ``table_casts`` by case: eager, graph) on
+    rees46's fused route (full catalog, a tie mode of the ranking kernel)
+    and never elsewhere. Then, in the standard mode, three ways in turns: the
     eager loop; ``graph``, the standalone call, which captures its step and
     frees the graph when it returns; ``graph_kept``, the graph kept across
     calls as ``fit`` keeps it. For each: the median ms per step (512
     lanes) and per 512 scored events, the host launches, device busy ms
-    and kernels per step (``utils/profiling.trace``), the memory peak of a
-    call; the graph pool's bytes. A standalone call leaves
+    and kernels per step (``utils/profiling.trace``; the kept graph's busy
+    ms also as ``kept_busy_ms_per_step``), the table's refreshes per call,
+    the memory peak of a call; the graph pool's bytes. A standalone call leaves
     ``memory_allocated`` as it found it (``memory_reserved`` is printed
     beside it: the call gives its pool back to the device)."""
     import torch
 
     from gru4rec_tpu_torch import evaluate
+    from gru4rec_tpu_torch.eval import evaluation
     from gru4rec_tpu_torch.eval.evaluation import _eval_schedule
     from gru4rec_tpu_torch.ops.ranking import TIE_MODES
     from gru4rec_tpu_torch.utils.cuda_graph import WARMUP_STEPS
@@ -2214,16 +2219,27 @@ def phase_eval_graph(flagship, smi_line):
         steps = _eval_schedule(model, test, EVAL_BATCH, "SessionId", "ItemId", "Time")
         events, steps = steps.n_events, steps.n_steps
         kw = dict(cut_off=EVAL_CUTOFFS, batch_size=EVAL_BATCH)
-        cases = {}
+
+        def casts(call):
+            """``call()``'s result and the table refreshes it counted."""
+            evaluation.reset_table_casts()
+            out = call()
+            return out, evaluation.table_casts["per_call"]
+
+        cases, table_casts, wrong_casts = {}, {}, {}
         with _eval_lanes() as seen:
             for mode in TIE_MODES:
                 for items in ("full", "subset"):
                     args = dict(kw, mode=mode, items=subset if items == "subset" else None)
-                    want = evaluate(model, test, _eager=True, **args)
+                    want, n_eager = casts(lambda: evaluate(model, test, _eager=True, **args))
                     H_want = seen[-1]
                     graphs = {}
-                    got = evaluate(model, test, _graphs=graphs, **args)
+                    got, n_graph = casts(lambda: evaluate(model, test, _graphs=graphs, **args))
                     (runner,) = graphs.values()
+                    fused = name == "rees46" and mode != "tiebreaking" and items == "full"
+                    table_casts[f"{mode}/{items}"] = [n_eager, n_graph]
+                    if [n_eager, n_graph] != [int(fused)] * 2:
+                        wrong_casts[f"{mode}/{items}"] = [n_eager, n_graph]
                     if runner.warm != WARMUP_STEPS or runner.warm + runner.replays != steps:
                         raise AssertionError(f"eval_graph {name} {mode}/{items}: "
                                              f"{runner.warm} eager and {runner.replays} "
@@ -2237,14 +2253,16 @@ def phase_eval_graph(flagship, smi_line):
         ways = {"eager": dict(_eager=True), "graph": {}, "graph_kept": dict(_graphs=kept)}
         for extra in ways.values():  # set-up and capture, not timed
             evaluate(model, test, **kw, **extra)
-        seconds, peaks = {w: [] for w in ways}, {}
+        seconds, peaks, refreshes = {w: [] for w in ways}, {}, {w: [] for w in ways}
         for _ in range(EVAL_GRAPH_REPS):
             for way, extra in ways.items():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
+                evaluation.reset_table_casts()
                 t0 = time.perf_counter()
                 evaluate(model, test, **kw, **extra)
                 seconds[way].append(time.perf_counter() - t0)
+                refreshes[way].append(evaluation.table_casts["per_call"])
                 peaks[way] = max(peaks.get(way, 0), torch.cuda.max_memory_allocated())
         traced = {way: trace(lambda: evaluate(model, test, **kw, **extra), steps)
                   for way, extra in ways.items()}
@@ -2263,7 +2281,8 @@ def phase_eval_graph(flagship, smi_line):
                "test_events": len(test), "scored_events": events, "steps": steps,
                "batch_size": EVAL_BATCH, "cutoffs": EVAL_CUTOFFS,
                "subset_items": EVAL_GRAPH_SUBSET, "warmup_steps": WARMUP_STEPS,
-               "max_abs_err": cases,
+               "max_abs_err": cases, "table_casts": table_casts,
+               "kept_busy_ms_per_step": traced["graph_kept"]["device_busy_ms"],
                "ways": {way: {
                    "seconds": seconds[way],
                    "ms_per_step": float(np.median(seconds[way])) * 1e3 / steps,
@@ -2272,6 +2291,7 @@ def phase_eval_graph(flagship, smi_line):
                    "host_launches_per_step": traced[way]["host_launches"],
                    "device_busy_ms_per_step": traced[way]["device_busy_ms"],
                    "kernels_per_step": traced[way]["kernels"],
+                   "table_casts_per_call": refreshes[way],
                    "max_memory_allocated": peaks[way]} for way in ways},
                "pool_bytes": runner.pool_bytes,
                "memory_allocated_before_after": [before, after],
@@ -2280,6 +2300,9 @@ def phase_eval_graph(flagship, smi_line):
         if any(cases.values()):
             raise AssertionError(f"eval_graph {name}: the graph and the eager loop differ: "
                                  f"{cases}")
+        if wrong_casts:
+            raise AssertionError(f"eval_graph {name}: table refreshes (eager, graph) of a "
+                                 f"call: {wrong_casts}")
         if before != after:
             raise AssertionError(f"eval_graph {name}: a standalone evaluate left "
                                  f"{after - before} bytes allocated")

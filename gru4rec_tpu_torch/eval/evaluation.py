@@ -75,6 +75,37 @@ def _on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
+def _fused_route(cfg, tie_mode: str, items_subset: bool) -> bool:
+    """Whether the step scores and ranks through the ranking kernel where it
+    runs on the card (:func:`_on_card`): full-catalog ranking under a
+    softmax final activation (``softmax`` or ``softmax_logit``, which ranks
+    as ``softmax``) in the ``standard``, ``conservative`` or ``median`` tie
+    mode."""
+    return (not items_subset and cfg.final_act in ("softmax", "softmax_logit")
+            and tie_mode in score_rank.MODES)
+
+
+def _table_cols(cfg, tie_mode: str, items_subset: bool):
+    """The columns ``Wy[:, :h_last]`` that the fused route's scores product
+    rounds to bfloat16 on every step, as their count ``h_last``, or None
+    where the route is not fused or its products keep float32 operands. An
+    evaluation runner then holds their bfloat16 copy, rounded once per call
+    (:meth:`_EvalGraph.count`), in place of the product's cast."""
+    if _fused_route(cfg, tie_mode, items_subset) and \
+            gru.torch_dtype(cfg.compute_dtype) != torch.float32:
+        return cfg.layers[-1]
+    return None
+
+
+# the refreshes of an evaluation runner's bfloat16 table, one per call that
+# holds one (:meth:`_EvalGraph.count`)
+table_casts = {"per_call": 0}
+
+
+def reset_table_casts() -> None:
+    table_casts["per_call"] = 0
+
+
 def _tally(ranks, valid, cutoffs, rec, mrr, H, H_new, H_in) -> None:
     """A step's counts, in place: the valid lanes' hits at each cutoff into
     ``rec``, their reciprocal ranks into ``mrr``, and their new hidden state
@@ -91,31 +122,32 @@ def _tally(ranks, valid, cutoffs, rec, mrr, H, H_new, H_in) -> None:
 def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                    items_subset: bool = False):
     """Build the per-step evaluation function ``step(params, H, in_idx,
-    out_idx, valid, reset, rec, mrr, gen, item_idx=None)``: the lanes ``H``
-    change in place, and ``rec`` and ``mrr`` (len(cutoffs),) accumulate in
-    place, so that a captured step (:class:`_EvalGraph`) reads and writes
-    the same tensors on every replay. Nothing in it waits on the host.
+    out_idx, valid, reset, rec, mrr, gen, item_idx=None, table=None)``: the
+    lanes ``H`` change in place, and ``rec`` and ``mrr`` (len(cutoffs),)
+    accumulate in place, so that a captured step (:class:`_EvalGraph`)
+    reads and writes the same tensors on every replay. Nothing in it waits
+    on the host.
 
-    On the card (:func:`_on_card`), full-catalog ranking under a softmax
-    final activation (``softmax`` or ``softmax_logit``, which ranks as
-    ``softmax``) in the ``standard``, ``conservative`` or ``median`` tie
-    mode goes, after the scores GEMM, through the kernel of
+    On the card (:func:`_on_card`), the fused route (:func:`_fused_route`)
+    goes, after the scores GEMM, through the kernel of
     ``ops/kernels/score_rank.py`` (``score_rank_cuda``), whose counts this
-    module's ``ranks_from_counts`` turns into ranks. The CPU, the subset,
-    ``tiebreaking`` and elementwise final activations score through
-    ``gru.forward`` and rank with eager ops (the kernel's plain version),
-    the full catalog through this module's ``compute_ranks``."""
+    module's ``ranks_from_counts`` turns into ranks. There ``table``, where
+    given, is ``Wy[:, :h_last]`` rounded to bfloat16 (:func:`_table_cols`),
+    and the GEMM reads it as it is; else the product rounds those rows
+    itself. The CPU, the subset, ``tiebreaking`` and elementwise final
+    activations score through ``gru.forward`` and rank with eager ops (the
+    kernel's plain version), the full catalog through this module's
+    ``compute_ranks``."""
     if tie_mode not in TIE_MODES:
         raise NotImplementedError(f"Unknown tie mode: {tie_mode!r}")
     mode = gru.input_mode(cfg)
     cutoffs = tuple(int(c) for c in cutoffs)
-    fused = (not items_subset and cfg.final_act in ("softmax", "softmax_logit")
-             and tie_mode in score_rank.MODES)
+    fused = _fused_route(cfg, tie_mode, items_subset)
     mm = gru.make_mm(cfg)
     h_last = cfg.layers[-1]
 
     def step(params, H, in_idx, out_idx, valid, reset, rec, mrr, gen,
-             item_idx=None):
+             item_idx=None, table=None):
         Wy = params["Wy"]
         H_in = [torch.where(reset[:, None], 0.0, h) for h in H]
         srows = gru.input_rows(params, torch.where(valid, in_idx, 0), mode)
@@ -148,7 +180,8 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
         elif fused and _on_card(Wy):
             H_new, y = gru.forward_stack(params, srows, H_in, cfg, M=b, training=False,
                                          full_catalog=True)
-            counts = score_rank.score_rank_cuda(mm(y, Wy[:, :h_last].T), Wy[:, h_last],
+            w = Wy[:, :h_last] if table is None else table
+            counts = score_rank.score_rank_cuda(mm(y, w.T), Wy[:, h_last],
                                                 n_items, torch.where(valid, out_idx, 0),
                                                 tie_mode)
             ranks = ranks_from_counts(*counts, tie_mode)
@@ -447,13 +480,26 @@ class _EvalGraph(ReplayLoop):
     step would. The graph reads the parameters it was captured on: the
     caller keys it on their binding (:func:`evaluate`). The capture's pool
     holds the step's intermediates, among them the (batch, n_items) score
-    matrices; ``pool_bytes`` is its size."""
+    matrices; ``pool_bytes`` is its size.
+
+    Where ``table_cols`` is given (:func:`_table_cols`) and ``Wy`` is a
+    float32 table on the card, the object owns ``table``, a contiguous
+    bfloat16 copy of ``Wy[:, :table_cols]`` made outside the capture's
+    pool. :meth:`count` rounds it from the live ``Wy`` before the call's
+    first step, on the stream the steps run on (the span
+    ``gru4rec.evaluate.cast``, counted in ``table_casts``), and every
+    step's scores product reads it: the table is rounded once a call, not
+    once a step, and a graph kept across calls scores the weights as they
+    are at each call. Its transpose has the layout of the product's own
+    cast, so the GEMM and its sums are the same."""
 
     def __init__(self, step, cfg, batch_size: int, lanes: int, n_cutoffs: int, n_subset,
-                 device, capturable: bool):
+                 device, capturable: bool, table_cols=None):
         super().__init__(WARMUP_STEPS, warmup_span="gru4rec.evaluate.warmup",
                          replay_span="gru4rec.evaluate.replay")
         self.step = step
+        self.table_cols = table_cols
+        self.table = None
         self.layout = StackLayout(batch_size, 0)
         self.H = gru.init_hidden(cfg, lanes, device)
         self.rec = torch.zeros(n_cutoffs, dtype=torch.float32, device=device)
@@ -472,13 +518,28 @@ class _EvalGraph(ReplayLoop):
         self.gen.manual_seed(seed)
         if item_idx is not None:
             self.item_idx.copy_(item_idx)
+        self._round_table(params["Wy"])
         self.run(stack, params)
         return self.rec, self.mrr
 
+    def _round_table(self, Wy):
+        """``table`` rounded from ``Wy`` (made at the first call), where the
+        object holds one (class doc)."""
+        cols = self.table_cols
+        if cols is None or not _on_card(Wy) or Wy.dtype != torch.float32:
+            return
+        with span("gru4rec.evaluate.cast"):
+            if self.table is None:
+                self.table = torch.empty((Wy.shape[0], cols), dtype=torch.bfloat16,
+                                         device=Wy.device)
+            self.table.copy_(Wy[:, :cols])
+        table_casts["per_call"] += 1
+
     def fn(self, row, params):
         in_idx, out_idx, valid, reset, _, _ = self.layout.split(row)
+        kw = {} if self.table is None else {"table": self.table}
         self.step(params, self.H, in_idx, out_idx, valid, reset, self.rec, self.mrr,
-                  self.gen, self.item_idx)
+                  self.gen, self.item_idx, **kw)
 
 
 @torch.no_grad()
@@ -510,9 +571,11 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     (:func:`_eval_schedule`).
 
     The call is the span ``gru4rec.evaluate``, with the children
-    ``gru4rec.evaluate.schedule`` (hit or miss), ``.upload``, the graph's
-    ``.warmup``, ``gru4rec.graph.capture`` and ``.replay`` (or the eager
-    loop, ``.steps``), ``.fetch`` and, for a standalone graph, ``.release``.
+    ``gru4rec.evaluate.schedule`` (hit or miss), ``.upload``, the table's
+    ``.cast`` where the runner rounds one (:class:`_EvalGraph`), the
+    graph's ``.warmup``, ``gru4rec.graph.capture`` and ``.replay`` (or the
+    eager loop, ``.steps``, with ``.cast`` inside), ``.fetch`` and, for a
+    standalone graph, ``.release``.
 
     ``mesh`` (``parallel.make_mesh``) evaluates on every rank of the mesh
     (module doc), which must all call it; ``batch_size`` is rounded down to
@@ -565,10 +628,12 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
             stack = layout.pack(sched.in_idx, sched.out_idx, sched.valid, sched.reset, None,
                                 None, dev)
         seed = cfg.seed + 1
+        table_cols = None
         if mesh is None:
             step = make_eval_step(cfg, gru_model.n_items, cutoffs, mode, items_subset)
             lanes = batch_size
             capturable = dev.type == "cuda"
+            table_cols = _table_cols(cfg, mode, items_subset)
         else:
             step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh,
                                        batch_size, items_subset)
@@ -578,7 +643,7 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
         # every rank of a mesh has the same schedule, so all decide alike
         graphed = capturable and not _eager and sched.n_steps > WARMUP_STEPS
         n_subset = None if item_idx is None else len(item_idx)
-        args = (step, cfg, batch_size, lanes, len(cutoffs), n_subset, dev, graphed)
+        args = (step, cfg, batch_size, lanes, len(cutoffs), n_subset, dev, graphed, table_cols)
         if graphed:
             key = (json.dumps(cfg.to_dict(), sort_keys=True, default=str),
                    gru_model.n_items, tuple(int(c) for c in cutoffs), mode, batch_size,

@@ -109,9 +109,9 @@ def _recording_steps(monkeypatch):
     def recording(*args, **kw):
         step = make(*args, **kw)
 
-        def wrapped(params, H, *rest):
+        def wrapped(params, H, *rest, **kw):
             seen.append(list(H))
-            return step(params, H, *rest)
+            return step(params, H, *rest, **kw)
 
         return wrapped
 

@@ -23,6 +23,14 @@ On the CPU:
   ``conservative`` or ``median`` tie mode; the CPU, the subset,
   ``tiebreaking``, elementwise final activations and the mesh step never
   reach it;
+* on that route with bfloat16 products, the evaluation runner
+  (``_EvalGraph``) hands the scores product its bfloat16 copy of the
+  table, laid out as the product's own cast, rounded once per call
+  whatever the steps (``table_casts``, the span
+  ``gru4rec.evaluate.cast``) and again at each call of a kept runner
+  after an in-place change of ``Wy``; a bfloat16 table, float32 products,
+  the subset, ``tiebreaking``, an elementwise activation and the CPU make
+  no copy;
 * the wrapper's card path raises on logits, bias or targets it does not
   take (dtype, shape, contiguity, device, tie mode), with a stub for the
   launch, and counts a call it does take.
@@ -37,7 +45,10 @@ target's (the kernel sums the softmax in another order), so exact where
 there are none; exactly equal on planted
 exact ties; the same bound on lanes that the kernel recounts exactly (a
 subnormal or zero target probability, a NaN or infinite score); one call
-per step of a captured ``evaluate``, graph against eager bit for bit.
+per step of a captured ``evaluate``, graph against eager bit for bit;
+on the fused route at standard ties, the table rounded once per call in
+both, a kept graph after an in-place change of ``Wy`` against a
+standalone call, and one cast of the table in a traced call.
 This file imports no JAX.
 """
 
@@ -53,6 +64,7 @@ from gru4rec_tpu_torch.models import gru  # noqa: E402
 from gru4rec_tpu_torch.ops.activations import masked_softmax  # noqa: E402
 from gru4rec_tpu_torch.ops.kernels import score_rank as sr  # noqa: E402
 from gru4rec_tpu_torch.ops.ranking import compute_ranks, ranks_from_counts  # noqa: E402
+from gru4rec_tpu_torch.train.step import StackLayout  # noqa: E402
 
 MODES = sr.MODES
 
@@ -269,6 +281,132 @@ def test_fault_seam_of_each_full_catalog_route(card, seam, monkeypatch):
     assert torch.equal(outs[0], outs[1]) != reaches
 
 
+@pytest.fixture
+def card_route(monkeypatch):
+    """The card's fused route on the CPU: ``_on_card`` patched, the
+    kernel's wrapper replaced by its plain version."""
+    monkeypatch.setattr(teval, "_on_card", lambda t: True)
+    monkeypatch.setattr(sr, "score_rank_cuda", sr.score_rank_plain)
+
+
+def runner_case(cfg, n_items, steps, mode="standard", subset=False, seed=0):
+    """An uncaptured evaluation runner (``_EvalGraph``) of the routed step
+    over ``steps`` random schedule rows, built as ``evaluate`` builds it,
+    and its stack and item list."""
+    rng = np.random.RandomState(seed)
+    B = cfg.batch_size
+    stack = StackLayout(B, 0).pack(rng.randint(0, n_items, (steps, B)),
+                                   rng.randint(0, n_items, (steps, B)),
+                                   rng.rand(steps, B) < 0.8, rng.rand(steps, B) < 0.3,
+                                   None, None, "cpu")
+    item_idx = torch.arange(0, n_items, 4, dtype=torch.int32) if subset else None
+    step = teval.make_eval_step(cfg, n_items, (1, 5, 20), mode, subset)
+    runner = teval._EvalGraph(step, cfg, B, B, 3, None if item_idx is None else len(item_idx),
+                              torch.device("cpu"), False, teval._table_cols(cfg, mode, subset))
+    return runner, stack, item_idx
+
+
+def test_scores_product_reads_the_rounded_table(card_route, monkeypatch):
+    """The runner's scores product gets its bfloat16 table, with the shape,
+    strides and values of the product's own cast of ``Wy[:, :h].T``, and
+    counts bit for bit as the step that casts on every step."""
+    seen = []
+    make_mm = gru.make_mm
+
+    def recording(cfg):
+        mm = make_mm(cfg)
+        return lambda a, b: seen.append(b) or mm(a, b)
+
+    monkeypatch.setattr(gru, "make_mm", recording)
+    cfg = step_cfg(compute_dtype="bfloat16")
+    n_items, steps = 50, 4
+    params, H = step_inputs(cfg, n_items)[:2]
+    runner, stack, _ = runner_case(cfg, n_items, steps)
+    runner.count(params, stack, seed=1)
+    want = params["Wy"][:, :cfg.layers[-1]].T.to(torch.bfloat16)
+    scores = [b for b in seen if b.shape == want.shape]
+    assert len(scores) == steps
+    for b in scores:
+        assert b.dtype == torch.bfloat16 and b.stride() == want.stride() == (1, 16)
+        assert b.data_ptr() == runner.table.data_ptr() and torch.equal(b, want)
+    # the step without the table, as it ran before: the product casts
+    Hs = [torch.zeros_like(h) for h in H]
+    rec, mrr = torch.zeros(3), torch.zeros(3)
+    step = teval.make_eval_step(cfg, n_items, (1, 5, 20), "standard")
+    layout = StackLayout(cfg.batch_size, 0)
+    for row in stack:
+        in_idx, out_idx, valid, reset, _, _ = layout.split(row)
+        step(params, Hs, in_idx, out_idx, valid, reset, rec, mrr, None)
+    assert torch.equal(rec, runner.rec) and torch.equal(mrr, runner.mrr)
+    assert all(torch.equal(a, b) for a, b in zip(Hs, runner.H))
+    assert float(rec[-1]) > 0
+
+
+@pytest.mark.parametrize("steps", [1, 3, 9])
+def test_table_rounded_once_per_call(steps, card_route):
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = step_cfg(compute_dtype="bfloat16")
+    params = step_inputs(cfg, 50)[0]
+    runner, stack, _ = runner_case(cfg, 50, steps)
+    teval.reset_table_casts()
+    for calls in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            runner.count(params, stack, seed=1)
+        assert teval.table_casts == {"per_call": calls}
+        assert [e.name for e in prof.events()].count("gru4rec.evaluate.cast") == 1
+    teval.reset_table_casts()
+
+
+def test_kept_runner_scores_the_live_table(card_route):
+    """A runner kept across calls (``fit``'s validation keeps its graph)
+    rounds the table again at each call: after an in-place change of
+    ``Wy`` it counts what a fresh runner counts on the changed weights."""
+    cfg = step_cfg(compute_dtype="bfloat16")
+    n_items, h = 50, cfg.layers[-1]
+    params = step_inputs(cfg, n_items)[0]
+    runner, stack, _ = runner_case(cfg, n_items, 6)
+    first = [t.clone() for t in runner.count(params, stack, seed=1)]
+    table = runner.table
+    params["Wy"][:, :h].copy_(torch.randn(params["Wy"][:, :h].shape,
+                                          generator=torch.Generator().manual_seed(9)))
+    second = runner.count(params, stack, seed=1)
+    fresh = runner_case(cfg, n_items, 6)[0].count(params, stack, seed=1)
+    assert runner.table is table  # refreshed in place: a graph reads the same buffer
+    assert torch.equal(second[0], fresh[0]) and torch.equal(second[1], fresh[1])
+    assert not torch.equal(first[1], second[1])
+
+
+NO_TABLE = {  # name: (step_cfg's arguments, tie mode, subset, on the card, bfloat16 parameters)
+    "bfloat16 table": (dict(compute_dtype="bfloat16"), "standard", False, True, True),
+    "float32 products": (dict(), "standard", False, True, False),
+    "subset": (dict(compute_dtype="bfloat16"), "standard", True, True, False),
+    "tiebreaking": (dict(compute_dtype="bfloat16"), "tiebreaking", False, True, False),
+    "elementwise": (dict(compute_dtype="bfloat16", final_act="elu-0.5"), "median", False,
+                    True, False),
+    "cpu": (dict(compute_dtype="bfloat16"), "standard", False, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(NO_TABLE))
+def test_no_table_where_the_step_casts_no_float32_table(case, monkeypatch):
+    """A table already in bfloat16 (``cast_for_serving``), float32
+    products, the subset, ``tiebreaking``, an elementwise activation and
+    the CPU make no copy and count no refresh."""
+    kw, mode, subset, card, narrow = NO_TABLE[case]
+    monkeypatch.setattr(teval, "_on_card", lambda t: card)
+    monkeypatch.setattr(sr, "score_rank_cuda", sr.score_rank_plain)
+    cfg = step_cfg(**kw)
+    params = step_inputs(cfg, 50)[0]
+    if narrow:
+        params = gru.map_params(lambda t: t.to(torch.bfloat16), params)
+    runner, stack, item_idx = runner_case(cfg, 50, 3, mode, subset)
+    teval.reset_table_casts()
+    rec, _ = runner.count(params, stack, seed=1, item_idx=item_idx)
+    assert runner.table is None and teval.table_casts == {"per_call": 0}
+    assert float(rec[-1]) > 0
+
+
 def fault_cases():
     B, N = 6, 64
     x = torch.zeros(B, N)
@@ -442,3 +580,83 @@ def test_cuda_captured_evaluate_calls_once_per_step(mode):
     assert runner.graph.tally["score_rank"] == {mode: 1}
     assert sr.launches_by_mode[mode] == 2 * steps
     assert got == eager
+
+
+@pytest.mark.cuda
+def test_cuda_kept_graph_scores_the_changed_table():
+    """A graph kept through ``_graphs`` and replayed after an in-place
+    change of ``Wy`` (as ``fit``'s steps change it between validations)
+    counts what a standalone call on the changed model counts."""
+    import gru4rec_tpu_torch
+
+    _card()
+    m, test = card_model("softmax")
+    kw = dict(cut_off=[1, 5, 10], batch_size=8, mode="standard")
+    graphs = {}
+    first = gru4rec_tpu_torch.evaluate(m, test, _graphs=graphs, **kw)
+    (runner,) = graphs.values()
+    assert runner.graph is not None and runner.table is not None
+    h = m.config.layers[-1]
+    gen = torch.Generator(device=m.device).manual_seed(9)
+    m.params["Wy"][:, :h].copy_(torch.randn(m.params["Wy"][:, :h].shape, generator=gen,
+                                            device=m.device))
+    got = gru4rec_tpu_torch.evaluate(m, test, _graphs=graphs, **kw)
+    assert list(graphs.values()) == [runner]  # replayed, not captured again
+    assert got == gru4rec_tpu_torch.evaluate(m, test, **kw)
+    assert got != first
+
+
+@pytest.mark.cuda
+def test_cuda_captured_route_with_the_table_matches_eager():
+    """The captured fused route and its eager plain version each round the
+    table once a call, and count bit for bit alike."""
+    import gru4rec_tpu_torch
+
+    _card()
+    m, test = card_model("softmax")
+    kw = dict(cut_off=[1, 5, 10], batch_size=8, mode="standard")
+    teval.reset_table_casts()
+    eager = gru4rec_tpu_torch.evaluate(m, test, _eager=True, **kw)
+    assert teval.table_casts == {"per_call": 1}
+    graphs = {}
+    got = gru4rec_tpu_torch.evaluate(m, test, _graphs=graphs, **kw)
+    (runner,) = graphs.values()
+    assert runner.replays > 10 and teval.table_casts == {"per_call": 2}
+    assert runner.table.dtype == torch.bfloat16 and runner.table.is_contiguous()
+    assert got == eager
+
+
+@pytest.mark.cuda
+def test_cuda_traced_call_rounds_the_table_once():
+    """In a traced call of a kept graph the table's float32 -> bfloat16
+    cast (the largest cast kernel: the whole table) runs once, not once
+    per replay."""
+    import json
+    import math
+    import os
+    import tempfile
+
+    import gru4rec_tpu_torch
+    from gru4rec_tpu_torch.utils.profiling import trace
+
+    _card()
+    m, test = card_model("softmax")
+    kw = dict(cut_off=[1, 5, 10], batch_size=8, mode="standard")
+    graphs = {}
+    gru4rec_tpu_torch.evaluate(m, test, _graphs=graphs, **kw)  # warm-up and capture
+    (runner,) = graphs.values()
+    replays = runner.replays
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        trace(lambda: gru4rec_tpu_torch.evaluate(m, test, _graphs=graphs, **kw), 1, path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    steps = runner.replays - replays
+    casts = [e for e in events if e.get("cat") == "kernel" and "bfloat16_copy" in e["name"]]
+
+    def threads(e):
+        return math.prod(e["args"]["grid"]) * math.prod(e["args"]["block"])
+
+    largest = max(map(threads, casts))
+    assert steps > 10 and len(casts) > steps  # the small products' casts, every replay
+    assert [threads(e) for e in casts].count(largest) == 1
