@@ -106,6 +106,30 @@ def reset_table_casts() -> None:
     table_casts["per_call"] = 0
 
 
+EVAL_ROUTES = ("fused", "full_eager", "subset")
+# single-device ``evaluate`` calls by the route their steps take
+# (:func:`_eval_route`), one per call
+eval_routes = dict.fromkeys(EVAL_ROUTES, 0)
+
+
+def reset_eval_routes() -> None:
+    for r in EVAL_ROUTES:
+        eval_routes[r] = 0
+
+
+def _eval_route(cfg, tie_mode: str, items_subset: bool, Wy) -> str:
+    """The branch of :func:`make_eval_step` a step over ``Wy`` takes:
+    ``subset`` (``items=``), ``fused`` (the card's ranking kernel) or
+    ``full_eager`` (the full catalog through ``gru.activate`` and
+    ``compute_ranks``: on the card the elementwise final activations and
+    ``tiebreaking``, on the CPU every full-catalog call)."""
+    if items_subset:
+        return "subset"
+    if _fused_route(cfg, tie_mode, False) and _on_card(Wy):
+        return "fused"
+    return "full_eager"
+
+
 def _tally(ranks, valid, cutoffs, rec, mrr, H, H_new, H_in) -> None:
     """A step's counts, in place: the valid lanes' hits at each cutoff into
     ``rec``, their reciprocal ranks into ``mrr``, and their new hidden state
@@ -135,14 +159,14 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
     given, is ``Wy[:, :h_last]`` rounded to bfloat16 (:func:`_table_cols`),
     and the GEMM reads it as it is; else the product rounds those rows
     itself. The CPU, the subset, ``tiebreaking`` and elementwise final
-    activations score through ``gru.forward`` and rank with eager ops (the
-    kernel's plain version), the full catalog through this module's
-    ``compute_ranks``."""
+    activations score through ``gru``'s forward and rank with eager ops
+    (the kernel's plain version), the full catalog through this module's
+    ``compute_ranks``, its activation, masks, target gather and ranks in
+    the span ``gru4rec.evaluate.rank`` (the branches: :func:`_eval_route`)."""
     if tie_mode not in TIE_MODES:
         raise NotImplementedError(f"Unknown tie mode: {tie_mode!r}")
     mode = gru.input_mode(cfg)
     cutoffs = tuple(int(c) for c in cutoffs)
-    fused = _fused_route(cfg, tie_mode, items_subset)
     mm = gru.make_mm(cfg)
     h_last = cfg.layers[-1]
 
@@ -153,7 +177,8 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
         srows = gru.input_rows(params, torch.where(valid, in_idx, 0), mode)
         b = in_idx.shape[0]
         lanes = torch.arange(b, device=Wy.device)
-        if items_subset:
+        route = _eval_route(cfg, tie_mode, items_subset, Wy)
+        if route == "subset":
             # score only the target + the item list (evaluation.py:104-105)
             srows["Wy"] = torch.cat([Wy[torch.where(valid, out_idx, 0)], Wy[item_idx]])
             H_new, yhat = gru.forward(params, srows, H_in, cfg, M=b, training=False,
@@ -177,7 +202,7 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                 self_adj = torch.where(dup.any(dim=1), 0.0,
                                        1.0 if tie_mode == "conservative" else 0.5)
             ranks = compute_ranks(others, target, tie_mode) + self_adj
-        elif fused and _on_card(Wy):
+        elif route == "fused":
             H_new, y = gru.forward_stack(params, srows, H_in, cfg, M=b, training=False,
                                          full_catalog=True)
             w = Wy[:, :h_last] if table is None else table
@@ -187,15 +212,22 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
             ranks = ranks_from_counts(*counts, tie_mode)
         else:
             item_valid = torch.arange(Wy.shape[0], device=Wy.device) < n_items
-            H_new, yhat = gru.forward(params, srows, H_in, cfg, M=b, training=False,
-                                      full_catalog=True, item_valid=item_valid)
-            yhat = torch.where(item_valid, yhat, -torch.inf)
-            if tie_mode == "tiebreaking":
-                yhat = yhat + torch.rand(yhat.shape, generator=gen,
-                                         device=yhat.device) * 1e-10
-            target = yhat[lanes, torch.where(valid, out_idx, 0)]
-            # full catalog: the self-comparison is among the columns
-            ranks = compute_ranks(yhat, target, tie_mode)
+            H_new, y = gru.forward_stack(params, srows, H_in, cfg, M=b, training=False,
+                                         full_catalog=True)
+            scores = gru.score(params, srows, y, cfg, full_catalog=True)
+            with span("gru4rec.evaluate.rank"):
+                yhat = gru.activate(scores, cfg, training=False, valid=item_valid,
+                                    full_catalog=True)
+                # as inside gru.forward: the raw scores are not held while the
+                # step ranks (one (batch, rows) float32 matrix less in the pool)
+                del scores
+                yhat = torch.where(item_valid, yhat, -torch.inf)
+                if tie_mode == "tiebreaking":
+                    yhat = yhat + torch.rand(yhat.shape, generator=gen,
+                                             device=yhat.device) * 1e-10
+                target = yhat[lanes, torch.where(valid, out_idx, 0)]
+                # full catalog: the self-comparison is among the columns
+                ranks = compute_ranks(yhat, target, tie_mode)
         _tally(ranks, valid, cutoffs, rec, mrr, H, H_new, H_in)
 
     return step
@@ -575,7 +607,9 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     ``.cast`` where the runner rounds one (:class:`_EvalGraph`), the
     graph's ``.warmup``, ``gru4rec.graph.capture`` and ``.replay`` (or the
     eager loop, ``.steps``, with ``.cast`` inside), ``.fetch`` and, for a
-    standalone graph, ``.release``.
+    standalone graph, ``.release``; on the full-catalog eager route,
+    ``gru4rec.evaluate.rank`` in each eager step and at the capture. A
+    single-device call counts its route in ``eval_routes``.
 
     ``mesh`` (``parallel.make_mesh``) evaluates on every rank of the mesh
     (module doc), which must all call it; ``batch_size`` is rounded down to
@@ -634,6 +668,7 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
             lanes = batch_size
             capturable = dev.type == "cuda"
             table_cols = _table_cols(cfg, mode, items_subset)
+            eval_routes[_eval_route(cfg, mode, items_subset, params["Wy"])] += 1
         else:
             step = make_dist_eval_step(cfg, gru_model.n_items, cutoffs, mode, mesh,
                                        batch_size, items_subset)

@@ -259,13 +259,21 @@ def forward(
 
     Returns (H_new list, yhat (B, N) or (B, n_items_pad)).
     """
-    final_act_name = cfg.final_act
-    mm = make_mm(cfg)
-    h_last = cfg.layers[-1]
     H_new, y = forward_stack(params, srows, H, cfg, M=M, training=training, gen=gen,
                              full_catalog=full_catalog, dropout_lanes=dropout_lanes)
+    scores = score(params, srows, y, cfg, M=M, full_catalog=full_catalog)
+    if training and logq_correction is not None:
+        scores = scores - logq_correction  # pre-activation (gru4rec.py:494-495)
+    valid = item_valid if full_catalog else col_valid
+    return H_new, activate(scores, cfg, training=training, valid=valid,
+                           full_catalog=full_catalog)
 
-    # --- scoring ---
+
+def score(params: Dict, srows: Dict, y, cfg: GRU4RecConfig, *, M=None,
+          full_catalog: bool = False):
+    """The scores of :func:`forward`, before the final activation: ``y``
+    times the item rows, plus their bias column."""
+    h_last = cfg.layers[-1]
     if full_catalog:
         Syb = params["Wy"]
     else:
@@ -273,19 +281,22 @@ def forward(
         # (reference: gru4rec.py:481-485); during training it reuses the
         # concatenated gather's tail
         Syb = srows["Wy"] if "Wy" in srows else srows["WyS"][M:]
-    scores = mm(y, Syb[:, :h_last].T) + Syb[:, h_last]
+    return make_mm(cfg)(y, Syb[:, :h_last].T) + Syb[:, h_last]
 
+
+def activate(scores, cfg: GRU4RecConfig, *, training: bool, valid=None,
+             full_catalog: bool = False):
+    """The final activation of :func:`forward` over ``scores``: a softmax
+    over the ``valid`` columns, or an elementwise activation whose invalid
+    full-catalog columns read ``-inf``."""
+    final_act_name = cfg.final_act
     fact = get_activation(final_act_name)
     if not training and final_act_name == "softmax_logit":
         # predict path swaps softmax_logit for softmax (gru4rec.py:490-491,499-500)
         fact = get_activation("softmax")
-    if training and logq_correction is not None:
-        scores = scores - logq_correction  # pre-activation (gru4rec.py:494-495)
-    cv = item_valid if full_catalog else col_valid
     if final_act_name in ("softmax", "softmax_logit"):
-        yhat = fact(scores, cv)
-    else:
-        yhat = fact(scores)
-        if full_catalog and item_valid is not None:
-            yhat = torch.where(item_valid, yhat, -torch.inf)
-    return H_new, yhat
+        return fact(scores, valid)
+    yhat = fact(scores)
+    if full_catalog and valid is not None:
+        yhat = torch.where(valid, yhat, -torch.inf)
+    return yhat

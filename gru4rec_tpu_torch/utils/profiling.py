@@ -8,8 +8,9 @@ trace.
   host events (``user_annotation``) in the same trace as the kernels, so
   a gap of the device falls inside the span that was running. They open
   per call, per chunk and per phase; per step only around an item table's
-  row update (``gru4rec.train.sparse_update.<table>``), on eager steps and
-  at a capture, never on a replay. Their names are listed in README.md.
+  row update (``gru4rec.train.sparse_update.<table>``) and an evaluation
+  step's eager full-catalog ranking (``gru4rec.evaluate.rank``), on eager
+  steps and at a capture, never on a replay. Their names are listed in README.md.
 * :class:`Pace`: one ``fit`` epoch's host seconds by phase, the stream
   time of its chunks' steps and the chunks whose device was behind the
   host, with no profiler (``epoch_stats`` and the JSONL ``epoch`` event).

@@ -6,7 +6,8 @@
   ``evaluate`` and ``predict_topk`` carry their names and nest as
   documented: a schedule cache hit has no children; a chunk or a call
   opens as many spans at 4 steps as at 40, but for one
-  ``gru4rec.train.sparse_update.<table>`` per item table and eager step.
+  ``gru4rec.train.sparse_update.<table>`` per item table and eager step
+  and one ``gru4rec.evaluate.rank`` per eager full-catalog evaluation step.
 * Every ``epoch_stats`` entry and JSONL ``epoch`` event carries the pace
   counters, also under a wrapper of ``make_chunk_fn`` that forwards only the
   chunk function's nine arguments and its ``runner``.
@@ -35,6 +36,9 @@ PHASES = {"sample", "upload", "issue", "nan_wait", "loss_sync"}
 
 # the spans an eager training step, or the captured one, runs in
 STEP_PARENTS = {"gru4rec.train.steps", "gru4rec.train.warmup", "gru4rec.graph.capture"}
+# the spans an eager evaluation step, or the captured one, runs in
+EVAL_STEP_PARENTS = {"gru4rec.evaluate.steps", "gru4rec.evaluate.warmup",
+                     "gru4rec.graph.capture"}
 # each span's parent span (None: none), as the program documents them
 PARENT = {
     "gru4rec.fit.schedule": {None},
@@ -63,6 +67,7 @@ PARENT = {
     "gru4rec.evaluate.steps": {"gru4rec.evaluate"},
     "gru4rec.evaluate.fetch": {"gru4rec.evaluate"},
     "gru4rec.evaluate.release": {"gru4rec.evaluate"},
+    "gru4rec.evaluate.rank": EVAL_STEP_PARENTS,
     "gru4rec.graph.capture": {"gru4rec.train.steps", "gru4rec.evaluate", "gru4rec.serve"},
     "gru4rec.serve": {None},
     "gru4rec.serve.keep": {"gru4rec.serve"},
@@ -242,11 +247,17 @@ def test_no_span_per_step(kind):
             frame = eval_frame(m, data, steps)
             spans = traced(lambda: gru4rec_tpu_torch.evaluate(m, frame, batch_size=8))
         assert_nesting(spans)
-        per_step = [n for n in names(spans) if n.startswith("gru4rec.train.sparse_update.")]
+        per_step = [n for n in names(spans) if n.startswith("gru4rec.train.sparse_update.")
+                    or n == "gru4rec.evaluate.rank"]
         if kind == "chunk":  # one-hot: both item tables, once a live step each
             live = int((sched[2].sum(axis=1) > 0).sum())
             assert sorted(per_step) == sorted(["gru4rec.train.sparse_update.Wx0",
                                                "gru4rec.train.sparse_update.Wy"] * live)
+        else:  # the CPU ranks every step of the full catalog eagerly
+            from gru4rec_tpu_torch.eval.evaluation import _eval_schedule
+
+            n = _eval_schedule(m, frame, 8, "SessionId", "ItemId", "Time").n_steps
+            assert per_step == ["gru4rec.evaluate.rank"] * n
         got.append(sorted(n for n in names(spans) if n not in per_step))
     assert got[0] == got[1] and got[0]
 
@@ -349,7 +360,11 @@ def test_cuda_graph_spans_and_device_pace():
 
     spans = traced(lambda: gru4rec_tpu_torch.evaluate(m, valid, batch_size=8), cuda=True)
     assert_nesting(spans)
-    assert [n for n in names(spans) if n.count(".") == 2 and n != "gru4rec.graph.capture"] == [
+    # elu-0.5 ranks eagerly: one rank span in each warm-up step and at the capture
+    assert [s[3] for s in spans if s[0] == "gru4rec.evaluate.rank"] == \
+        ["gru4rec.evaluate.warmup"] * 3 + ["gru4rec.graph.capture"]
+    assert [n for n in names(spans) if n.count(".") == 2 and n not in (
+            "gru4rec.graph.capture", "gru4rec.evaluate.rank")] == [
         "gru4rec.evaluate.schedule", "gru4rec.evaluate.upload", "gru4rec.evaluate.warmup",
         "gru4rec.evaluate.replay", "gru4rec.evaluate.fetch", "gru4rec.evaluate.release"]
 
