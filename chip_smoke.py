@@ -45,8 +45,13 @@ It drives ``gru4rec_tpu_torch`` only (no JAX):
    (``ops/kernels/score_rank.py``) against its plain version at rees46's
    evaluation shape in each tie mode, one call with host syncs an error,
    and its device, wrapper and plain time per call beside one read of the
-   scores (``score_rank_timing``); every training phase's ``evaluate``
-   calls it once per step under a softmax final activation;
+   scores (``score_rank_timing``); ``score_rank_elementwise``: its
+   elementwise mode at diginetica's evaluation shape under every
+   elementwise activation, counts equal to the plain version's, one call
+   with host syncs an error, and elu-1's time beside the eager route's and
+   one read (``score_rank_elementwise_timing``); every training phase's
+   ``evaluate`` calls it once per step under a softmax or an elementwise
+   final activation;
 5. reference — the training slice on the card against the same slice on
    the CPU at a small size, step by step;
 6. train   — ``GRU4Rec.fit`` of the RetailRocket flagship config (GRU-224,
@@ -1136,6 +1141,85 @@ def phase_score_rank(smi_line):
     return rec
 
 
+# its elementwise mode at diginetica's evaluation (elu-1): B, N, n_items,
+# the table's width
+SCORE_RANK_EW_SHAPE = (512, 43_008, 43_000, 640)
+SCORE_RANK_EW_ACTS = ("elu-1", "elu-0.5", "linear", "relu", "leaky-0.1",
+                      "selu-1.0507-1.6733", "tanh", "sigmoid")
+
+
+def phase_score_rank_elementwise(smi_line):
+    """The ranking kernel's elementwise mode at diginetica's evaluation
+    shape (``SCORE_RANK_EW_SHAPE``, logits and bias drawn from a seed, a
+    third of the lanes invalid, a few columns far below zero where the
+    saturating activations tie, a third of the lanes targeting one): under
+    each activation of ``SCORE_RANK_EW_ACTS`` and tie mode, its counts
+    against the plain version's on the card (``off_lanes``: they must be
+    equal); one call under ``torch.cuda.set_sync_debug_mode("error")``;
+    then ``SCORE_RANK_STEPS`` back-to-back elu-1 calls (standard): ``ms``
+    the device time per call of the kernels named ``score_rank*``
+    (``torch.profiler``; ``ops`` by name, each once per call), ``step_ms``
+    and ``plain_ms`` the wrapper's and the plain version's (the eager
+    route's op sequence) time per call (CUDA events), ``bound_ms`` one
+    read of the scores at 3.35 TB/s. Returns the timing record."""
+    import torch
+
+    from gru4rec_tpu_torch.ops.kernels import proto_measure
+    from gru4rec_tpu_torch.ops.kernels import score_rank as sr
+
+    B, N, n_items, width = SCORE_RANK_EW_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(17)
+    x = torch.randn((B, N), generator=gen, device=DEVICE) * 3.0
+    x[:, 4:10] = -120.0 - 10.0 * torch.arange(6, device=DEVICE)
+    table = torch.zeros((N, width), device=DEVICE)
+    table[:n_items, width // 2] = torch.randn(n_items, generator=gen, device=DEVICE) * 0.5
+    table[4:10, width // 2] = 0.0
+    bias = table[:, width // 2]
+    tgt = torch.randint(0, n_items, (B,), generator=gen, device=DEVICE, dtype=torch.int32)
+    tgt[::3] = 0
+    tgt[1::3] = 6
+    checks = {}
+    for act in SCORE_RANK_EW_ACTS:
+        for mode in sr.MODES:
+            got = sr.score_rank_cuda(x, bias, n_items, tgt, mode, act)
+            want = sr.score_rank_plain(x, bias, n_items, tgt, mode, act)
+            for name, g, w in zip(("gt", "second"), got, want):
+                if w is not None:
+                    checks[f"{act} {mode} {name}"] = int((g.long() != w.long()).sum())
+    emit({"phase": "score_rank_elementwise", "shape": [B, N, n_items], "off_lanes": checks,
+          "card": smi_line})
+    bad = {k: v for k, v in checks.items() if v}
+    if bad:
+        raise AssertionError(f"score_rank_elementwise: counts off the plain version's {bad}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sr.score_rank_cuda(x, bias, n_items, tgt, "median", "elu-1")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps = SCORE_RANK_STEPS
+    xs = [x, torch.randn((B, N), generator=gen, device=DEVICE) * 3.0]
+    kern = lambda s: sr.score_rank_cuda(xs[s % 2], bias, n_items, tgt, "standard", "elu-1")
+    plain = lambda s: sr.score_rank_plain(xs[s % 2], bias, n_items, tgt, "standard", "elu-1")
+    times = proto_measure.device_times(kern, steps=steps)
+    ours = {k: v for k, v in times.items() if "score_rank" in k}
+    if len(ours) != 2 or any(abs(n - steps) > steps // 16 for _, n in ours.values()):
+        raise AssertionError(f"score_rank_elementwise: kernels per call {times}")
+    bytes_read = B * N * 4
+    rec = {"phase": "score_rank_elementwise_timing", "shape": [B, N, n_items],
+           "act": "elu-1",
+           "ms": sum(us / n for us, n in ours.values()) / 1e3,
+           "ops": {k[:60]: us / n for k, (us, n) in ours.items()},
+           "other_ops": {k[:60]: v for k, v in times.items() if k not in ours},
+           "step_ms": proto_measure.steps_us(kern, steps=steps) / 1e3,
+           "plain_ms": proto_measure.steps_us(plain, steps=steps, reps=3) / 1e3,
+           "bound_ms": bytes_read / HBM_BYTES_PER_S * 1e3, "bytes": bytes_read,
+           "bound_by": "bytes", "library_ms": None, "card": smi_line}
+    emit(rec)
+    return rec
+
+
 def phase_reference():
     """The training slice on the card against the same slice on the CPU at
     a small size (60 items, layers [32], batch 8, 16 injected negatives,
@@ -1306,10 +1390,10 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
     must show (every other mode none); the products must number
     ``mm_per_step`` per training step and its forward ones per evaluation
     step (``mm_launches``); the full-catalog ranking kernel must run once
-    per evaluation step under a softmax final activation, else never
-    (``score_rank_launches``); ``fit`` must have replayed its captured step
-    on every step but the warm-up (``graph``: warm-up steps, replays, pool
-    bytes). With
+    per evaluation step under a final activation it takes (a softmax or an
+    elementwise one), else never (``score_rank_launches``); ``fit`` must
+    have replayed its captured step on every step but the warm-up
+    (``graph``: warm-up steps, replays, pool bytes). With
     ``extra`` (a dict of fields for the record), the record
     also holds ``evaluate``'s seconds and events/s, the device memory peak
     of the run and ``updates``: the table shape, K and state of the
@@ -1348,7 +1432,7 @@ def _train(phase, cfg, train, test, smi_line, per_step, cut_off=(1, 5, 20), extr
         raise AssertionError(f"{phase}: tensor-core products {mm_launches} over {steps} "
                              f"training and {eval_steps} evaluation steps, expected {want}")
     ranked = sum(score_rank.launches_by_mode.values())
-    if ranked != (eval_steps if cfg.final_act in ("softmax", "softmax_logit") else 0):
+    if ranked != (eval_steps if score_rank.takes(cfg.final_act) else 0):
         raise AssertionError(f"{phase}: score_rank ran {ranked} times over {eval_steps} "
                              f"evaluation steps under final_act={cfg.final_act!r}")
     if extra is not None:
@@ -4138,6 +4222,7 @@ def main() -> int:
     timing = phase_kernel_timing()
     mm = phase_mixed_mm(smi_line)
     ranking = phase_score_rank(smi_line)
+    ranking_ew = phase_score_rank_elementwise(smi_line)
     phase_reference()
     paths = {}
     paths["train"], flagship = phase_train(smi_line)
@@ -4230,6 +4315,16 @@ def main() -> int:
         "launches": paths["published_rees46"]["score_rank_launches"],
         **{k: ranking[k] for k in ("ms", "step_ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
+    })
+    kernels.append({
+        "name": "score_rank[diginetica evaluation, elementwise elu-1]",
+        "route": "cuda",
+        "source": "gru4rec_tpu_torch/csrc/score_rank.cu",
+        "replaces": None,
+        "path": "train: the flagship's evaluate (elu-0.5)",
+        "launches": paths["train"]["score_rank_launches"],
+        **{k: ranking_ew[k] for k in ("ms", "step_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
     })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 // Full-catalog ranking of the evaluation step for Hopper (sm_90a): the bias
 // add, the masked softmax, the -inf mask, the target's gather and the
-// comparison counts after the scores GEMM, in four launches.
+// comparison counts after the scores GEMM, in four launches; under an
+// elementwise final activation in two (the second part of this file).
 //
 // Replaces no TPU kernel. The JAX package leaves these passes to XLA, which
 // fuses them into the evaluation chunk's program
@@ -419,6 +420,209 @@ int launch(const float* x, const void* bias, long long bias_stride, int bias_bf1
 
 int tiles(int N) { return (N + kTile - 1) / kTile; }
 
+// ---------------------------------------------------------------------------
+// Elementwise final activations (linear, relu, leaky-<x>, elu-<a>,
+// selu-<l>-<a>, tanh, sigmoid): the same counts in two launches.
+//
+// Replaces the eager passes of the evaluation step's full-catalog route for
+// these activations (eval/evaluation.py make_eval_step): the broadcast bias
+// add, the activation as torch's op sequence (elu: clamp, exp, sub, mul,
+// compare, where), the item_valid -inf mask, the target's gather and
+// ops/ranking.py rank_counts' compares, int64 copies and sums, each reading
+// and most writing the (B, N) float32 scores. Replaces no TPU kernel: XLA
+// fuses these passes in gru4rec_tpu/eval/evaluation.py make_eval_chunk_fn.
+//
+// What it computes, per lane r, with act the activation as torch computes
+// it (ops/activations.py; one rounding per operation, expf, IEEE division):
+//   a_t = act(x[r, tgt] + b[tgt]);  a_c = act(x[r, c] + b[c]) for c < n_items
+//   gt = #{c : a_c > a_t},  ge = #{c : a_c >= a_t},  eq = #{c : a_c == a_t}
+// plus, where a_t is -inf, the N - n_items padding columns in ge and eq (the
+// eager route's -inf there equals such a target). No sum of floats is
+// involved, so the counts equal ops/kernels/score_rank.py::score_rank_plain's
+// exactly, saturated ties (elu's -alpha, tanh's -1) included.
+//
+// Bound. One read of the scores: at diginetica's 512 x 43,008, 88,080,384
+// bytes, 26.3 us at 3.35 TB/s. At that size the card's own one-read
+// reductions come to about 0.75 of it (torch.amax(x, dim=1) 33.5 us,
+// torch.sum(x) 36.3 us): the ramp and the tail of a 26 us grid are a
+// large part of it.
+//
+// Design.
+//   * The prep launch (score_rank_ew_prep_kernel) packs the strided bias
+//     column as pass 0 does, computes each lane's a_t into the workspace and
+//     writes the counts' starting values.
+//   * The count launch (score_rank_ew_count_kernel) reads the scores once,
+//     over a grid of (kRowsE lanes) x (a tile of kHalf = 1,024 columns):
+//     one 16-byte load a thread a row (scalar where N % 4 != 0 or x is
+//     misaligned), all kRowsE rows in flight, the tile's bias in registers.
+//     Many small blocks (5,376 at diginetica's shape) keep the tail short;
+//     the other grids measured at this shape (2,048-column tiles, 8-32
+//     lanes a block, blocks or warps that each walk an even share of the
+//     matrix) were as fast or slower (PERF.md). Each element's a_c is
+//     compared with its lane's a_t; the warp's counts are reduced with
+//     __reduce_add_sync, the block's in shared memory, and one integer
+//     atomic a lane and count merges them into the output. The counts are
+//     final: no finish pass, and a replay is bit-reproducible.
+//   * The activation is a template argument (one kernel per activation, no
+//     branch in the inner loop); its parameters come from the caller.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsE = 4;  // lanes of a block of the count launch, all their loads in flight
+
+enum Act { kLinear = 0, kRelu = 1, kLeaky = 2, kElu = 3, kSelu = 4, kTanh = 5, kSigmoid = 6 };
+
+struct EwWork {
+  float* bias;    // [N] the bias column, packed
+  float* target;  // [B] a_t
+};
+
+EwWork carve_ew(void* base, int N) {
+  char* p = static_cast<char*>(base);
+  EwWork w;
+  w.bias = reinterpret_cast<float*>(p);
+  w.target = reinterpret_cast<float*>(p + align16(sizeof(float) * static_cast<size_t>(N)));
+  return w;
+}
+
+size_t ew_workspace_bytes(int B, int N) {
+  return align16(sizeof(float) * static_cast<size_t>(N)) +
+         align16(sizeof(float) * static_cast<size_t>(B));
+}
+
+// act(v) as ops/activations.py computes it with torch's ops, rounding after
+// each one. Where torch computes where(v >= 0, v, f(clamp(v, max=0))), f's
+// argument is v itself: the branch is taken only for v < 0 or NaN.
+template <int ACT>
+__device__ __forceinline__ float activate(float v, float p0, float p1) {
+  if (ACT == kLinear) return v;
+  if (ACT == kRelu) return v != v ? v : (v > 0.f ? v : 0.f);  // torch.maximum: NaN stays
+  if (ACT == kLeaky) return v >= 0.f ? v : p0 * v;
+  if (ACT == kElu) return v >= 0.f ? v : p0 * (expf(v) - 1.f);
+  if (ACT == kSelu) return p0 * (v >= 0.f ? v : p1 * (expf(v) - 1.f));
+  if (ACT == kTanh) return tanhf(v);
+  return 1.f / (1.f + expf(-v));  // kSigmoid: 1.0 / (1.0 + exp(-x))
+}
+
+template <int ACT, typename BiasT>
+__global__ void __launch_bounds__(kThreads) score_rank_ew_prep_kernel(
+    const float* __restrict__ x, const BiasT* __restrict__ bias, long long bias_stride,
+    const int* __restrict__ tgt, int B, int N, int n_items, float p0, float p1, EwWork w,
+    int* __restrict__ counts) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < N) w.bias[i] = to_float(bias[static_cast<size_t>(i) * bias_stride]);
+  if (i < B) {
+    const int c = tgt[i];
+    const float v = x[static_cast<size_t>(i) * N + c] +
+                    to_float(bias[static_cast<size_t>(c) * bias_stride]);
+    const float at = activate<ACT>(v, p0, p1);
+    w.target[i] = at;
+    const int pad = at == -INFINITY ? N - n_items : 0;
+    counts[i] = 0;
+    counts[B + i] = pad;
+    counts[2 * B + i] = pad;
+  }
+}
+
+// four elements of `row` from column c; 0 past N
+template <bool VEC>
+__device__ __forceinline__ void load_quad(const float* __restrict__ row, int c, int N,
+                                          float (&v)[kVec]) {
+  if (VEC) {
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < N) q = __ldg(reinterpret_cast<const float4*>(row + c));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = c + k < N ? __ldg(row + c + k) : 0.f;
+  }
+}
+
+template <int ACT, bool VEC>
+__global__ void __launch_bounds__(kThreads) score_rank_ew_count_kernel(
+    const float* __restrict__ x, int B, int N, int n_items, int C, float p0, float p1,
+    EwWork w, int* __restrict__ counts) {
+  const int g = blockIdx.x / C, tile = blockIdx.x % C;
+  const int r0 = g * kRowsE, c = tile * kHalf + kVec * static_cast<int>(threadIdx.x);
+  const bool whole = (tile + 1) * kHalf <= n_items;  // every column of the tile is real
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ int s_gt[kRowsE][kWarps], s_eq[kRowsE][kWarps];
+
+  float b[kVec];
+  load_quad<VEC>(w.bias, c, N, b);
+  float v[kRowsE][kVec];
+#pragma unroll
+  for (int k = 0; k < kRowsE; ++k)
+    if (r0 + k < B) load_quad<VEC>(x + static_cast<size_t>(r0 + k) * N, c, N, v[k]);
+#pragma unroll
+  for (int k = 0; k < kRowsE; ++k) {
+    if (r0 + k >= B) break;
+    const float at = w.target[r0 + k];
+    int gt = 0, eq = 0;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (!whole && c + j >= n_items) continue;  // padding counts nothing
+      const float a = activate<ACT>(v[k][j] + b[j], p0, p1);
+      gt += a > at;
+      eq += a == at;
+    }
+    gt = __reduce_add_sync(kFull, gt);
+    eq = __reduce_add_sync(kFull, eq);
+    if (lane == 0) {
+      s_gt[k][warp] = gt;
+      s_eq[k][warp] = eq;
+    }
+  }
+  __syncthreads();
+  if (t < kRowsE && r0 + t < B) {
+    int gt = 0, eq = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      gt += s_gt[t][k];
+      eq += s_eq[t][k];
+    }
+    const int r = r0 + t;
+    if (gt) atomicAdd(&counts[r], gt);
+    if (gt + eq) atomicAdd(&counts[B + r], gt + eq);
+    if (eq) atomicAdd(&counts[2 * B + r], eq);
+  }
+}
+
+template <int ACT, bool VEC>
+int launch_ew(const float* x, const void* bias, long long bias_stride, int bias_bf16,
+              const int* tgt, int B, int N, int n_items, float p0, float p1, EwWork w,
+              int* counts, cudaStream_t stream) {
+  const int n = N > B ? N : B;
+  const int packs = (n + kThreads - 1) / kThreads;
+  if (bias_bf16)
+    score_rank_ew_prep_kernel<ACT, __nv_bfloat16><<<packs, kThreads, 0, stream>>>(
+        x, static_cast<const __nv_bfloat16*>(bias), bias_stride, tgt, B, N, n_items, p0, p1,
+        w, counts);
+  else
+    score_rank_ew_prep_kernel<ACT, float><<<packs, kThreads, 0, stream>>>(
+        x, static_cast<const float*>(bias), bias_stride, tgt, B, N, n_items, p0, p1, w,
+        counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int C = (N + kHalf - 1) / kHalf;
+  const int blocks = (B + kRowsE - 1) / kRowsE * C;
+  score_rank_ew_count_kernel<ACT, VEC><<<blocks, kThreads, 0, stream>>>(
+      x, B, N, n_items, C, p0, p1, w, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int ACT>
+int launch_ew_any(const float* x, const void* bias, long long bias_stride, int bias_bf16,
+                  const int* tgt, int B, int N, int n_items, float p0, float p1, EwWork w,
+                  int* counts, int vec, cudaStream_t stream) {
+  return vec ? launch_ew<ACT, true>(x, bias, bias_stride, bias_bf16, tgt, B, N, n_items, p0,
+                                    p1, w, counts, stream)
+             : launch_ew<ACT, false>(x, bias, bias_stride, bias_bf16, tgt, B, N, n_items, p0,
+                                     p1, w, counts, stream);
+}
+
 }  // namespace
 
 // Bytes of the workspace a call at (B, N) takes.
@@ -441,4 +645,40 @@ extern "C" int gru4rec_score_rank(const float* x, const void* bias, long long bi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return vec ? launch<true>(x, bias, bias_stride, bias_bf16, tgt, B, N, n_items, C, w, counts, st)
              : launch<false>(x, bias, bias_stride, bias_bf16, tgt, B, N, n_items, C, w, counts, st);
+}
+
+// Bytes of the workspace an elementwise call at (B, N) takes.
+extern "C" size_t gru4rec_score_rank_ew_workspace_bytes(int B, int N) {
+  return ew_workspace_bytes(B, N);
+}
+
+// The counts of gru4rec_score_rank under an elementwise activation: act one
+// of enum Act (linear 0, relu 1, leaky 2, elu 3, selu 4, tanh 5, sigmoid 6),
+// p0 and p1 its parameters (leaky: p0 the leak; elu: p0 alpha; selu: p0
+// lambda, p1 alpha). The other arguments as there; work:
+// gru4rec_score_rank_ew_workspace_bytes(B, N) bytes, 16-byte aligned.
+extern "C" int gru4rec_score_rank_ew(const float* x, const void* bias, long long bias_stride,
+                                     int bias_bf16, const int* tgt, int B, int N, int n_items,
+                                     int act, float p0, float p1, void* work, int* counts,
+                                     int vec, void* stream) {
+  if (B <= 0 || N <= 0 || n_items <= 0 || n_items > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EwWork w = carve_ew(work, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GRU4REC_EW_CASE(A)                                                                  \
+  case A:                                                                                   \
+    return launch_ew_any<A>(x, bias, bias_stride, bias_bf16, tgt, B, N, n_items, p0, p1, w, \
+                            counts, vec, st);
+  switch (act) {
+    GRU4REC_EW_CASE(kLinear)
+    GRU4REC_EW_CASE(kRelu)
+    GRU4REC_EW_CASE(kLeaky)
+    GRU4REC_EW_CASE(kElu)
+    GRU4REC_EW_CASE(kSelu)
+    GRU4REC_EW_CASE(kTanh)
+    GRU4REC_EW_CASE(kSigmoid)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GRU4REC_EW_CASE
 }

@@ -43,6 +43,7 @@ collectives inside the graph; a gloo mesh runs them eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 
@@ -77,11 +78,12 @@ def _on_card(t) -> bool:
 
 def _fused_route(cfg, tie_mode: str, items_subset: bool) -> bool:
     """Whether the step scores and ranks through the ranking kernel where it
-    runs on the card (:func:`_on_card`): full-catalog ranking under a
-    softmax final activation (``softmax`` or ``softmax_logit``, which ranks
-    as ``softmax``) in the ``standard``, ``conservative`` or ``median`` tie
-    mode."""
-    return (not items_subset and cfg.final_act in ("softmax", "softmax_logit")
+    runs on the card (:func:`_on_card`): full-catalog ranking under a final
+    activation the kernel takes (``softmax`` or ``softmax_logit``, which
+    ranks as ``softmax``, or an elementwise one:
+    ``ops/kernels/score_rank.py::takes``) in the ``standard``,
+    ``conservative`` or ``median`` tie mode."""
+    return (not items_subset and score_rank.takes(cfg.final_act)
             and tie_mode in score_rank.MODES)
 
 
@@ -106,7 +108,7 @@ def reset_table_casts() -> None:
     table_casts["per_call"] = 0
 
 
-EVAL_ROUTES = ("fused", "full_eager", "subset")
+EVAL_ROUTES = ("fused", "fused_elementwise", "full_eager", "subset")
 # single-device ``evaluate`` calls by the route their steps take
 # (:func:`_eval_route`), one per call
 eval_routes = dict.fromkeys(EVAL_ROUTES, 0)
@@ -119,14 +121,15 @@ def reset_eval_routes() -> None:
 
 def _eval_route(cfg, tie_mode: str, items_subset: bool, Wy) -> str:
     """The branch of :func:`make_eval_step` a step over ``Wy`` takes:
-    ``subset`` (``items=``), ``fused`` (the card's ranking kernel) or
+    ``subset`` (``items=``), ``fused`` (the card's ranking kernel under a
+    softmax), ``fused_elementwise`` (the same kernel's elementwise mode) or
     ``full_eager`` (the full catalog through ``gru.activate`` and
-    ``compute_ranks``: on the card the elementwise final activations and
-    ``tiebreaking``, on the CPU every full-catalog call)."""
+    ``compute_ranks``: on the card ``tiebreaking`` and activations the
+    kernel does not take, on the CPU every full-catalog call)."""
     if items_subset:
         return "subset"
     if _fused_route(cfg, tie_mode, False) and _on_card(Wy):
-        return "fused"
+        return "fused" if cfg.final_act in score_rank.SOFTMAX else "fused_elementwise"
     return "full_eager"
 
 
@@ -154,15 +157,18 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
 
     On the card (:func:`_on_card`), the fused route (:func:`_fused_route`)
     goes, after the scores GEMM, through the kernel of
-    ``ops/kernels/score_rank.py`` (``score_rank_cuda``), whose counts this
-    module's ``ranks_from_counts`` turns into ranks. There ``table``, where
-    given, is ``Wy[:, :h_last]`` rounded to bfloat16 (:func:`_table_cols`),
-    and the GEMM reads it as it is; else the product rounds those rows
-    itself. The CPU, the subset, ``tiebreaking`` and elementwise final
-    activations score through ``gru``'s forward and rank with eager ops
-    (the kernel's plain version), the full catalog through this module's
-    ``compute_ranks``, its activation, masks, target gather and ranks in
-    the span ``gru4rec.evaluate.rank`` (the branches: :func:`_eval_route`)."""
+    ``ops/kernels/score_rank.py`` (``score_rank_cuda``, in its softmax or
+    its elementwise mode), whose counts this module's ``ranks_from_counts``
+    turns into ranks. There ``table``, where given, is ``Wy[:, :h_last]``
+    rounded to bfloat16 (:func:`_table_cols`), and the GEMM reads it as it
+    is; else the product rounds those rows itself. The CPU, the subset,
+    ``tiebreaking`` and activations the kernel does not take score through
+    ``gru``'s forward and rank with eager ops (the kernel's plain version),
+    the full catalog through this module's ``compute_ranks``. The span
+    ``gru4rec.evaluate.rank`` holds the full-catalog ranking of the eager
+    route (activation, masks, target gather and ranks) and of the kernel's
+    elementwise mode (the kernel and ``ranks_from_counts``); the softmax
+    mode opens none (the branches: :func:`_eval_route`)."""
     if tie_mode not in TIE_MODES:
         raise NotImplementedError(f"Unknown tie mode: {tie_mode!r}")
     mode = gru.input_mode(cfg)
@@ -202,14 +208,20 @@ def make_eval_step(cfg, n_items: int, cutoffs, tie_mode: str,
                 self_adj = torch.where(dup.any(dim=1), 0.0,
                                        1.0 if tie_mode == "conservative" else 0.5)
             ranks = compute_ranks(others, target, tie_mode) + self_adj
-        elif route == "fused":
+        elif route in ("fused", "fused_elementwise"):
             H_new, y = gru.forward_stack(params, srows, H_in, cfg, M=b, training=False,
                                          full_catalog=True)
             w = Wy[:, :h_last] if table is None else table
-            counts = score_rank.score_rank_cuda(mm(y, w.T), Wy[:, h_last],
-                                                n_items, torch.where(valid, out_idx, 0),
-                                                tie_mode)
-            ranks = ranks_from_counts(*counts, tie_mode)
+            scores = mm(y, w.T)
+            # the elementwise mode ranks inside the span that the eager route
+            # opens for the same work (eval_elementwise.* read it); the
+            # softmax mode opens none
+            with span("gru4rec.evaluate.rank") if route == "fused_elementwise" else \
+                    contextlib.nullcontext():
+                counts = score_rank.score_rank_cuda(scores, Wy[:, h_last], n_items,
+                                                    torch.where(valid, out_idx, 0), tie_mode,
+                                                    cfg.final_act)
+                ranks = ranks_from_counts(*counts, tie_mode)
         else:
             item_valid = torch.arange(Wy.shape[0], device=Wy.device) < n_items
             H_new, y = gru.forward_stack(params, srows, H_in, cfg, M=b, training=False,
@@ -607,8 +619,9 @@ def evaluate(gru_model, test_data, items=None, session_key="SessionId",
     ``.cast`` where the runner rounds one (:class:`_EvalGraph`), the
     graph's ``.warmup``, ``gru4rec.graph.capture`` and ``.replay`` (or the
     eager loop, ``.steps``, with ``.cast`` inside), ``.fetch`` and, for a
-    standalone graph, ``.release``; on the full-catalog eager route,
-    ``gru4rec.evaluate.rank`` in each eager step and at the capture. A
+    standalone graph, ``.release``; on the full-catalog eager route and
+    the kernel's elementwise mode, ``gru4rec.evaluate.rank`` in each eager
+    step and at the capture. A
     single-device call counts its route in ``eval_routes``.
 
     ``mesh`` (``parallel.make_mesh``) evaluates on every rank of the mesh

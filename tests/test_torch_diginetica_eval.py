@@ -11,7 +11,10 @@ GRU-16, batch 8):
   ``subset`` call with ``items=``; on the card (``cuda``-marked, skipped
   here; run there with ``python -m pytest --noconftest -m cuda
   tests/test_torch_diginetica_eval.py``) a softmax call counts ``fused``
-  and opens no rank span;
+  and opens no rank span, an elu-1 call counts ``fused_elementwise`` and
+  opens the rank span in its eager warm-up steps and at the capture, and
+  its captured call gives the Recall and MRR of the eager route
+  (``full_eager``);
 * the span ``gru4rec.evaluate.rank`` opens once per step on the
   full-catalog eager route and never on the subset;
 * the readers ``eval_elementwise.us_per_step`` and
@@ -228,10 +231,30 @@ def test_card_counts_the_fused_route_for_softmax(final_act):
     data = clicks(cell, SEEDS[0], 1500)
     evaluation.reset_eval_routes()
     spans = rank_spans(lambda: run_evaluate(model, data))
-    route = "fused" if final_act == "softmax" else "full_eager"
+    route = "fused" if final_act == "softmax" else "fused_elementwise"
     assert evaluation.eval_routes == {**dict.fromkeys(evaluation.EVAL_ROUTES, 0), route: 1}
     # eager warm-up steps and the capture open the span; replays do not
     assert spans.count(RANK) == (0 if route == "fused" else WARMUP_STEPS + 1)
+    evaluation.reset_eval_routes()
+
+
+@pytest.mark.cuda
+def test_card_fused_elementwise_matches_the_eager_route(monkeypatch):
+    """A captured elu-1 call through the ranking kernel's elementwise mode
+    gives the Recall and MRR of the same call with the step forced onto the
+    eager route."""
+    dev = _card()
+    cell = tiny_cell()
+    wseed = generators.seed32(SEEDS[1], "weights")
+    model = common.program_model(cell, weights.make_params(cell.config, wseed, dev), 7, dev)
+    data = clicks(cell, SEEDS[1], 1500)
+    evaluation.reset_eval_routes()
+    got = run_evaluate(model, data)
+    assert evaluation.eval_routes["fused_elementwise"] == 1
+    monkeypatch.setattr(evaluation, "_eval_route", lambda *a: "full_eager")
+    monkeypatch.setattr(evaluation, "_table_cols", lambda *a: None)
+    want = run_evaluate(model, data)
+    assert got == want and got[0][-1] > 0
     evaluation.reset_eval_routes()
 
 

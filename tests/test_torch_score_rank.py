@@ -52,6 +52,8 @@ standalone call, and one cast of the table in a traced call.
 This file imports no JAX.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -67,14 +69,22 @@ from gru4rec_tpu_torch.ops.ranking import compute_ranks, ranks_from_counts  # no
 from gru4rec_tpu_torch.train.step import StackLayout  # noqa: E402
 
 MODES = sr.MODES
+# every elementwise final activation of ops/activations.py, which the
+# kernel's elementwise mode takes
+ELEMENTWISE = ["elu-0.5", "elu-1", "linear", "relu", "leaky-0.1", "selu-1.0507-1.6733",
+               "tanh", "sigmoid"]
+SATURATING = ("elu", "selu", "relu", "tanh", "sigmoid")  # flat below some logit
+SATURATED = range(4, 10)  # logits_case's columns far below zero
 
 
-def logits_case(B, N, n_items, seed, device="cpu", ties=True, width=48):
+def logits_case(B, N, n_items, seed, device="cpu", ties=True, width=48, saturate=False):
     """Logits (B, N), the bias column of a (N, width) float32 table (a
     strided view), int32 targets with every third lane invalid (column 0)
     and, with ``ties``, columns 1-3 copies of column 0 (logits and bias)
     and each lane's target copied into two columns of its own at the top of
-    the catalog."""
+    the catalog. With ``saturate`` too, the columns ``SATURATED`` hold
+    distinct logits from -120 down, where elu, selu, relu, tanh and sigmoid
+    saturate, and the lanes ``1::3`` target one of them."""
     rng = np.random.RandomState(seed)
     x = (rng.randn(B, N) * 3.0).astype(np.float32)
     table = np.zeros((N, width), np.float32)
@@ -82,6 +92,11 @@ def logits_case(B, N, n_items, seed, device="cpu", ties=True, width=48):
     table[:n_items, b] = rng.randn(n_items).astype(np.float32) * 0.5
     tgt = rng.randint(0, n_items - 2 * B, size=B).astype(np.int32)
     tgt[::3] = 0
+    if ties and saturate:
+        for k, c in enumerate(SATURATED):
+            x[:, c] = -120.0 - 10.0 * k
+            table[c, b] = 0.0
+        tgt[1::3] = SATURATED[2]
     if ties:
         x[:, 1:4] = x[:, :1]
         table[1:4, b] = table[0, b]
@@ -94,10 +109,17 @@ def logits_case(B, N, n_items, seed, device="cpu", ties=True, width=48):
             torch.from_numpy(tgt).to(device))
 
 
-def todays_counts(x, bias, n_items, tgt, mode):
-    """The evaluation step's op sequence before the kernel existed."""
+def todays_counts(x, bias, n_items, tgt, mode, final_act="softmax"):
+    """The evaluation step's op sequence before the kernel existed: for an
+    elementwise activation, the eager route's (``gru.activate``, then the
+    step's own mask)."""
     item_valid = torch.arange(x.shape[1]) < n_items
-    yhat = masked_softmax(x + bias, item_valid)
+    if final_act == "softmax":
+        yhat = masked_softmax(x + bias, item_valid)
+    else:
+        cfg = types.SimpleNamespace(final_act=final_act)
+        yhat = gru.activate(x + bias, cfg, training=False, valid=item_valid,
+                            full_catalog=True)
     yhat = torch.where(item_valid, yhat, -torch.inf)
     target = yhat[torch.arange(x.shape[0]), tgt]
     t = target[:, None]
@@ -110,21 +132,44 @@ def todays_counts(x, bias, n_items, tgt, mode):
     return gt, second, compute_ranks(yhat, target, mode)
 
 
+@pytest.mark.parametrize("final_act", ["softmax", *ELEMENTWISE])
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("mode", MODES)
-def test_plain_matches_the_eager_sequence(mode, seed):
+def test_plain_matches_the_eager_sequence(mode, seed, final_act):
     B, N, n_items = 12, 301, 290
-    x, bias, tgt = logits_case(B, N, n_items, seed)
-    gt, second = sr.score_rank_plain(x, bias, n_items, tgt, mode)
-    want_gt, want_second, want_ranks = todays_counts(x, bias, n_items, tgt, mode)
+    x, bias, tgt = logits_case(B, N, n_items, seed, saturate=True)
+    gt, second = sr.score_rank_plain(x, bias, n_items, tgt, mode, final_act)
+    want_gt, want_second, want_ranks = todays_counts(x, bias, n_items, tgt, mode, final_act)
     assert torch.equal(gt, want_gt)
     assert (second is None) == (want_second is None)
     if second is not None:
         assert torch.equal(second, want_second)
     assert torch.equal(ranks_from_counts(gt, second, mode), want_ranks)
     # the ties are there: a lane's target equals several columns
-    eq = sr.score_rank_plain(x, bias, n_items, tgt, "median")[1]
+    eq = sr.score_rank_plain(x, bias, n_items, tgt, "median", final_act)[1]
     assert int(eq.min()) >= 3 and int(eq[::3].min()) >= 4
+    if final_act.split("-")[0] in SATURATING:
+        # the saturated columns tie with the lanes that target one of them
+        assert int(eq[1::3].min()) >= len(SATURATED) + 2
+        if final_act.startswith("elu-"):
+            t = gru.activate(x + bias, types.SimpleNamespace(final_act=final_act),
+                             training=False)[1, SATURATED[2]]
+            assert float(t) == -float(final_act[4:])
+
+
+@pytest.mark.parametrize("act, want", [
+    ("elu-1", (3, 1.0, 0.0)), ("elu-0.5", (3, 0.5, 0.0)), ("linear", (0, 0.0, 0.0)),
+    ("relu", (1, 0.0, 0.0)), ("leaky-0.1", (2, 0.1, 0.0)), ("tanh", (5, 0.0, 0.0)),
+    ("sigmoid", (6, 0.0, 0.0)), ("selu-1.0507-1.6733", (4, 1.0507, 1.6733)),
+    ("softmax", None), ("softmax_logit", None), ("elu", None), ("elu-x", None),
+    ("tanh-1", None), ("selu-1", None), ("swish", None)])
+def test_elementwise_codes(act, want):
+    """The kernel's activation code and parameters, parsed from the
+    activation's name as ``get_activation`` parses it; None where the
+    elementwise mode does not take it (the softmax family takes the other
+    mode)."""
+    assert sr.elementwise_code(act) == want
+    assert sr.takes(act) == (want is not None or act in sr.SOFTMAX)
 
 
 def step_cfg(**kw):
@@ -173,13 +218,14 @@ def forward_path_step(cfg, n_items, cutoffs, mode):
     return step
 
 
-@pytest.mark.parametrize("final_act", ["softmax", "softmax_logit"])
+@pytest.mark.parametrize("final_act", ["softmax", "softmax_logit", "elu-0.5", "elu-1", "tanh",
+                                       "linear", "relu", "sigmoid"])
 @pytest.mark.parametrize("mode", MODES)
 def test_routed_step_matches_the_forward_path(mode, final_act, monkeypatch):
     calls = []
     monkeypatch.setattr(teval, "_on_card", lambda t: True)
     monkeypatch.setattr(sr, "score_rank_cuda",
-                        lambda *a: calls.append(a[-1]) or sr.score_rank_plain(*a))
+                        lambda *a: calls.append(a[4:]) or sr.score_rank_plain(*a))
     cfg = step_cfg(final_act=final_act, compute_dtype="bfloat16")
     n_items, cutoffs = 50, (1, 5, 20)
     params, H, in_idx, out_idx, valid, reset = step_inputs(cfg, n_items)
@@ -194,7 +240,7 @@ def test_routed_step_matches_the_forward_path(mode, final_act, monkeypatch):
     (H1, rec1, mrr1), (H2, rec2, mrr2) = outs
     assert torch.equal(rec1, rec2) and torch.equal(mrr1, mrr2)
     assert all(torch.equal(a, b) for a, b in zip(H1, H2))
-    assert float(rec1[-1]) > 0 and len(calls) == 3
+    assert float(rec1[-1]) > 0 and calls == [(mode, final_act)] * 3
 
 
 class FakeMesh:
@@ -219,9 +265,12 @@ ROUTES = {  # name: (final_act, tie mode, subset, mesh, on the card, reaches the
     "cpu": ("softmax", "standard", False, False, False, False),
     "subset": ("softmax", "standard", True, False, True, False),
     "tiebreaking": ("softmax", "tiebreaking", False, False, True, False),
-    "elu": ("elu-0.5", "standard", False, False, True, False),
-    "tanh": ("tanh", "median", False, False, True, False),
-    "linear": ("linear", "conservative", False, False, True, False),
+    "elu": ("elu-0.5", "standard", False, False, True, True),
+    "tanh": ("tanh", "median", False, False, True, True),
+    "linear": ("linear", "conservative", False, False, True, True),
+    "elu tiebreaking": ("elu-1", "tiebreaking", False, False, True, False),
+    "elu cpu": ("elu-1", "standard", False, False, False, False),
+    "elu subset": ("elu-1", "median", True, False, True, False),
     "mesh": ("softmax", "standard", False, True, True, False),
 }
 
@@ -232,7 +281,7 @@ def test_make_eval_step_routes(route, monkeypatch):
     calls = []
 
     def patched(*args):
-        calls.append(args[-1])
+        calls.append(args[4])
         return sr.score_rank_plain(*args)
 
     monkeypatch.setattr(sr, "score_rank_cuda", patched)
@@ -306,10 +355,12 @@ def runner_case(cfg, n_items, steps, mode="standard", subset=False, seed=0):
     return runner, stack, item_idx
 
 
-def test_scores_product_reads_the_rounded_table(card_route, monkeypatch):
+@pytest.mark.parametrize("final_act", ["softmax", "elu-1"])
+def test_scores_product_reads_the_rounded_table(final_act, card_route, monkeypatch):
     """The runner's scores product gets its bfloat16 table, with the shape,
     strides and values of the product's own cast of ``Wy[:, :h].T``, and
-    counts bit for bit as the step that casts on every step."""
+    counts bit for bit as the step that casts on every step; under the
+    kernel's softmax and elementwise modes alike."""
     seen = []
     make_mm = gru.make_mm
 
@@ -318,7 +369,7 @@ def test_scores_product_reads_the_rounded_table(card_route, monkeypatch):
         return lambda a, b: seen.append(b) or mm(a, b)
 
     monkeypatch.setattr(gru, "make_mm", recording)
-    cfg = step_cfg(compute_dtype="bfloat16")
+    cfg = step_cfg(compute_dtype="bfloat16", final_act=final_act)
     n_items, steps = 50, 4
     params, H = step_inputs(cfg, n_items)[:2]
     runner, stack, _ = runner_case(cfg, n_items, steps)
@@ -382,8 +433,8 @@ NO_TABLE = {  # name: (step_cfg's arguments, tie mode, subset, on the card, bflo
     "float32 products": (dict(), "standard", False, True, False),
     "subset": (dict(compute_dtype="bfloat16"), "standard", True, True, False),
     "tiebreaking": (dict(compute_dtype="bfloat16"), "tiebreaking", False, True, False),
-    "elementwise": (dict(compute_dtype="bfloat16", final_act="elu-0.5"), "median", False,
-                    True, False),
+    "elementwise": (dict(compute_dtype="bfloat16", final_act="elu-0.5"), "tiebreaking",
+                    False, True, False),
     "cpu": (dict(compute_dtype="bfloat16"), "standard", False, False, False),
 }
 
@@ -391,8 +442,9 @@ NO_TABLE = {  # name: (step_cfg's arguments, tie mode, subset, on the card, bflo
 @pytest.mark.parametrize("case", list(NO_TABLE))
 def test_no_table_where_the_step_casts_no_float32_table(case, monkeypatch):
     """A table already in bfloat16 (``cast_for_serving``), float32
-    products, the subset, ``tiebreaking``, an elementwise activation and
-    the CPU make no copy and count no refresh."""
+    products, the subset, ``tiebreaking`` (under a softmax or an
+    elementwise activation) and the CPU make no copy and count no
+    refresh."""
     kw, mode, subset, card, narrow = NO_TABLE[case]
     monkeypatch.setattr(teval, "_on_card", lambda t: card)
     monkeypatch.setattr(sr, "score_rank_cuda", sr.score_rank_plain)
@@ -427,6 +479,8 @@ def fault_cases():
         "no items": (x, bias, 0, tgt, "standard"),
         "tiebreaking": (x, bias, 60, tgt, "tiebreaking"),
         "targets on another device": (x, bias, 60, tgt.to("meta"), "standard"),
+        "unknown activation": (x, bias, 60, tgt, "standard", "swish"),
+        "elu without its alpha": (x, bias, 60, tgt, "median", "elu"),
     }
 
 
@@ -434,7 +488,7 @@ def fault_cases():
 def stub_launch(monkeypatch):
     """The card path with its library stubbed: the launches it would make."""
     launched = []
-    monkeypatch.setattr(sr, "workspace_bytes", lambda B, N: 64)
+    monkeypatch.setattr(sr, "workspace_bytes", lambda *a: 64)
     monkeypatch.setattr(sr, "_launch", lambda *args: launched.append(args))
     sr.reset_launches()
     yield launched
@@ -450,12 +504,17 @@ def test_card_path_raises_on_what_it_does_not_take(fault, stub_launch):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_card_path_launches_and_counts(mode, stub_launch):
+    """One launch and one count a call, in the softmax mode and in the
+    elementwise mode (which hands the kernel its activation's code)."""
     x = torch.zeros(6, 64)
     bias = torch.zeros(64, 4, dtype=torch.bfloat16)[:, 2]
-    gt, second = sr.score_rank_cuda(x, bias, 60, torch.zeros(6, dtype=torch.int32), mode)
-    assert len(stub_launch) == 1 and sr.launches_by_mode[mode] == 1
-    assert gt.shape == (6,) and gt.dtype == torch.int32
-    assert (second is None) == (mode == "standard")
+    for calls, act in enumerate(("softmax", "selu-1.5-0.25"), 1):
+        gt, second = sr.score_rank_cuda(x, bias, 60, torch.zeros(6, dtype=torch.int32), mode,
+                                        act)
+        assert len(stub_launch) == calls and sr.launches_by_mode[mode] == calls
+        assert gt.shape == (6,) and gt.dtype == torch.int32
+        assert (second is None) == (mode == "standard")
+    assert [args[-1] for args in stub_launch] == [None, (4, 1.5, 0.25)]
 
 
 # --------------------------------------------------------------------- #
@@ -541,6 +600,64 @@ def test_cuda_recounted_lanes(mode):
     assert_counts_close(x[:, :4_999].contiguous(), bias[:4_999], 4_990, tgt, mode)
 
 
+# diginetica's evaluation (512 lanes, 43,008 padded columns, 43,000 real)
+# and a ragged width (scalar loads, a partial last tile)
+EW_SHAPES = [(512, 43_008, 43_000), (96, 5_003, 4_990)]
+
+
+def ew_case(B, N, n_items, seed, dev):
+    """``logits_case`` with saturated ties, and special scores: a NaN and an
+    infinity among a lane's columns, a lane whose target reads -inf (its
+    activation -inf under linear and leaky, so the padding columns tie
+    with it) and one whose target is NaN."""
+    x, bias, tgt = logits_case(B, N, n_items, seed, dev, width=640, saturate=True)
+    x[0, 17] = torch.nan
+    x[2, 23] = torch.inf
+    x[3, tgt[3]] = -torch.inf
+    x[5, tgt[5]] = torch.nan
+    return x, bias, tgt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ELEMENTWISE)
+@pytest.mark.parametrize("shape", EW_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cuda_elementwise_kernel_matches_plain(shape, act):
+    """The elementwise mode's counts equal the plain version's lane by lane,
+    in every tie mode, with a float32 and a bfloat16 bias: no sum is
+    involved, so there is no allowance."""
+    dev = _card()
+    B, N, n_items = shape
+    x, bias, tgt = ew_case(B, N, n_items, 3, dev)
+    for b in (bias, bias.to(torch.bfloat16)):
+        for mode in MODES:
+            got = sr.score_rank_cuda(x, b, n_items, tgt, mode, act)
+            want = sr.score_rank_plain(x, b, n_items, tgt, mode, act)
+            for name, g, w in zip(("gt", "second"), got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    off = (g.long() != w.long()).nonzero().flatten()
+                    assert off.numel() == 0, (act, mode, b.dtype, name, off[:8].tolist(),
+                                              g[off[:8]].tolist(), w[off[:8]].tolist())
+    eq = sr.score_rank_plain(x, bias, n_items, tgt, "median", act)[1]
+    if act.split("-")[0] in SATURATING:
+        assert int(eq[1::3].min()) >= len(SATURATED) + 2  # the saturated ties count
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_elementwise_call_does_not_sync():
+    dev = _card()
+    x, bias, tgt = ew_case(*EW_SHAPES[0], 4, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts = sr.score_rank_cuda(x, bias, EW_SHAPES[0][2], tgt, "median", "elu-1")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = sr.score_rank_plain(x, bias, EW_SHAPES[0][2], tgt, "median", "elu-1")
+    assert all(torch.equal(g, w) for g, w in zip(counts, want))
+
+
 def card_model(final_act, seed=0):
     from gru4rec_tpu_torch import GRU4Rec
     from gru4rec_tpu_torch.data.loader import build_itemidmap
@@ -562,12 +679,13 @@ def card_model(final_act, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("final_act", ["softmax", "elu-1"])
 @pytest.mark.parametrize("mode", MODES)
-def test_cuda_captured_evaluate_calls_once_per_step(mode):
+def test_cuda_captured_evaluate_calls_once_per_step(mode, final_act):
     import gru4rec_tpu_torch
 
     _card()
-    m, test = card_model("softmax")
+    m, test = card_model(final_act)
     kw = dict(cut_off=[1, 5, 10], batch_size=8, mode=mode)
     sr.reset_launches()
     eager = gru4rec_tpu_torch.evaluate(m, test, _eager=True, **kw)
