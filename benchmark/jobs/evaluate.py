@@ -5,10 +5,14 @@ and MRR@c at the traffic's cutoffs and batch, standard ties).
 Set-up makes the stream and the weights from the seed and makes one call
 (the first builds and loads what the program needs); the window is the
 calls that follow, until ``seconds`` have passed, and its rate is every
-event those calls ranked over the window's seconds. With tracing, the
-window's second call runs under the profiler. Every call's recall and MRR
-are compared with the reference's, which ranks each session's clicks from
-its first one.
+event those calls ranked over the window's seconds. ``info.call_s`` holds
+the count of the window's calls and the min, p25, p50, p75 and max of
+their seconds (nearest rank), each call timed from the previous one's end
+by the clock read that ends it, so the window does no timing work beyond
+that read. With tracing, the window's second call runs under the
+profiler, and its time holds the profiler's cost and the reading of its
+trace. Every call's recall and MRR are compared with the reference's,
+which ranks each session's clicks from its first one.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def run(cell, run):
     common.reset_peak(dev)
     call()
     run.window = [common.now()]
-    results, region = [], None
+    results, ends, region = [], [], None
     while True:
         if run.trace and len(results) == 1:
             out = []
@@ -47,7 +51,8 @@ def run(cell, run):
             results.append(out[0])
         else:
             results.append(call())
-        if common.now() - run.window[0] >= run.seconds and len(results) >= 1 + run.trace:
+        ends.append(common.now())
+        if ends[-1] - run.window[0] >= run.seconds and len(results) >= 1 + run.trace:
             break
     common.close_window(run)
     peak = common.memory_peak(dev)
@@ -73,5 +78,6 @@ def run(cell, run):
             "attempted": len(results), "failed": len(bad), "memory_peak_bytes": peak,
             "numbers": numbers, "layer": layer,
             "info": {"calls": len(results), "events_per_call": events,
+                     "call_s": stats.summary([b - a for a, b in zip(run.window[:1] + ends, ends)]),
                      "recall": results[0][0], "mrr": results[0][1],
                      "reference_recall": rec, "reference_mrr": mrr}}

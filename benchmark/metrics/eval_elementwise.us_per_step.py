@@ -1,10 +1,11 @@
 """eval_elementwise.us_per_step: the device time of every kernel of the
 traced ``evaluate`` call that is not a matrix product, per evaluation
-step, in microseconds (``yardstick/score_bytes.py``: the table's per-step
-cast, the bias, the final activation, the masks, the target gather, the
-rank counts and the tallies); nothing where the call did not rank through
-the eager full-catalog route (no ``gru4rec.evaluate.rank`` span in the
-trace, as on the card's fused ranking route)."""
+step, in microseconds (``yardstick/score_bytes.py``: the bias, the final
+activation, the masks, the target gather and the rank counts, whether the
+ranking kernel's elementwise mode or the eager route runs them, the
+tallies, the GRU's elementwise work and any bfloat16 cast); nothing where
+the call did not rank under an elementwise activation (no
+``gru4rec.evaluate.rank`` span in the trace, as on the softmax mode)."""
 
 from benchmark.yardstick import score_bytes
 

@@ -2,10 +2,12 @@
 (batch, padded catalog) float32 scores at 3.35 TB/s
 (``yardstick/score_bytes.py``; 88,080,384 B, 26.3 us at 512 x 43,008) over
 the step's device time of the kernels that are no matrix product
-(``eval_elementwise.us_per_step``), in percent. That work has to read the
-scores at least once, so the share cannot pass 100% unless the bytes are
-counted too high or the time misses part of the work; it is not capped.
-Nothing where ``eval_elementwise.us_per_step`` reads nothing."""
+(``eval_elementwise.us_per_step``: the elementwise ranking, whether the
+ranking kernel's elementwise mode or the eager route runs it, and the
+step's other such kernels), in percent. That work has to read the scores
+at least once, so the share cannot pass 100% unless the bytes are counted
+too high or the time misses part of the work; it is not capped. Nothing
+where ``eval_elementwise.us_per_step`` reads nothing."""
 
 from benchmark.yardstick import counts, score_bytes
 

@@ -34,6 +34,13 @@ def test_job_agrees_with_the_reference(workload):
     assert list(line)[-1] == "checks"
 
 
+def test_evaluation_times_every_call():
+    line = run_tiny(tiny_cell("rees46.eval"))
+    n, *quantiles = line["info"]["call_s"]
+    assert n == line["attempted"] == line["info"]["calls"] > 1
+    assert 0 < quantiles[0] <= quantiles[1] <= quantiles[2] <= quantiles[3] <= quantiles[4]
+
+
 @pytest.mark.parametrize("config", ["retailrocket", "rees46"])
 def test_losses_are_the_programs(config):
     from gru4rec_tpu_torch.ops.activations import get_activation

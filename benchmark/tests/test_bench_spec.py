@@ -14,6 +14,7 @@ SPEC = spec.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 CELLS = [w["name"] for w in SPEC["workloads"]]
+PARAMETER_FILE = re.compile(r"^(paramfiles|param_samples)/[A-Za-z0-9_.\-]+\.py")
 with open(os.path.join(spec.HERE, "deferred.json")) as _f:
     DEFERRED = json.load(_f)
 
@@ -57,11 +58,13 @@ def test_config_files(name):
     for key in conf["reduced"]:
         assert NAME.match(key) and key in config["params"]
         assert not key.endswith(("_dim", "_rank")) and key not in ("layers", "embedding")
-    # the published parameters, as the paramfile states them
+    # the published parameters, as the parameter file that the
+    # configuration's own source names states them
     from gru4rec_tpu_torch import GRU4RecConfig
 
-    published = GRU4RecConfig.from_parameter_file(
-        os.path.join(spec.ROOT, "paramfiles", f"{name}_best.py"))
+    source = PARAMETER_FILE.match(config["source"])
+    assert source, config["source"]
+    published = GRU4RecConfig.from_parameter_file(os.path.join(spec.ROOT, source.group(0)))
     for k, v in config["params"].items():
         assert getattr(published, k) == v, k
 

@@ -92,6 +92,27 @@ def test_region_reads_calls_launches_and_gaps():
     assert gaps[tracing.CALL] == pytest.approx(30e-6)  # [0, 10) and [80, 100)
 
 
+def test_breakdown_names_a_gap_begun_outside_every_host_event():
+    # the region opens before the program's first span: the opening gap
+    # [0, 650) is split by the span innermost at each moment, [0, 5)
+    # unnamed; a gap that no host event overlaps keeps no name
+    def span(name, ts, dur):
+        return {"name": name, "cat": "user_annotation", "ts": ts, "dur": dur}
+
+    ev = [span(tracing.REGION, 0.0, 1000.0), span("gru4rec.evaluate", 5.0, 895.0),
+          span("gru4rec.evaluate.schedule", 10.0, 590.0),
+          span("gru4rec.evaluate.schedule.sort", 20.0, 380.0),
+          span("gru4rec.evaluate.schedule.walk", 410.0, 180.0),
+          {"name": "k1", "cat": "kernel", "ts": 650.0, "dur": 200.0},
+          {"name": "k2", "cat": "kernel", "ts": 920.0, "dur": 10.0}]
+    gaps = dict(tracing.Region(ev).breakdown()["idle_gaps"])
+    assert gaps == {"gru4rec.evaluate.schedule.sort": pytest.approx(380e-6),
+                    "gru4rec.evaluate.schedule.walk": pytest.approx(180e-6),
+                    "gru4rec.evaluate.schedule": pytest.approx(30e-6),
+                    "gru4rec.evaluate": pytest.approx(125e-6),    # + [850, 920)
+                    "(no host event)": pytest.approx(75e-6)}      # + [930, 1000)
+
+
 def test_flop_counts_against_hand_counts():
     # retailrocket training: GRU-224, batch 80, 2,048 negatives
     gates = 2 * 80 * (224 + 224) * 3 * 224             # 48,168,960

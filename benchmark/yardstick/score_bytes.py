@@ -11,9 +11,10 @@ The time is that of every kernel of a traced ``evaluate`` call that is not
 a matrix product (:data:`PRODUCT`), per step: the bias, the final
 activation, the masks, the target gather, the rank counts and the tallies,
 the GRU's elementwise work and any bfloat16 cast of an operand. It is read
-only where the call ranked through the program's eager full-catalog route,
-whose span (:data:`RANK_SPAN`) the trace holds: the card's fused ranking
-kernel has readers of its own.
+only where the trace holds the span :data:`RANK_SPAN`, which the program
+opens around the elementwise ranking: the ranking kernel's elementwise
+mode on the card, the eager full-catalog route elsewhere. The kernel's
+softmax mode opens no such span and has readers of its own.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ def is_product(name: str) -> bool:
 
 def elementwise_s_per_step(layer):
     """Seconds a step of the traced evaluation's kernels that are no
-    matrix product, or None where the call did not rank on the eager
-    full-catalog route or ran no such kernel."""
+    matrix product, or None where the trace holds no elementwise ranking
+    span or the call ran no such kernel."""
     if layer is None or layer.get("kind") != "eval":
         return None
     region = layer["region"]

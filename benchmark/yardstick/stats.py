@@ -19,3 +19,10 @@ def rate(work: float, seconds: float) -> float:
     if seconds <= 0:
         raise ValueError("an empty window")
     return float(work) / float(seconds)
+
+
+def summary(values) -> list:
+    """``[count, min, p25, p50, p75, max]`` of every value (nearest-rank
+    percentiles)."""
+    return [len(values), float(min(values)), percentile(values, 25), percentile(values, 50),
+            percentile(values, 75), float(max(values))]

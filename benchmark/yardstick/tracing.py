@@ -16,6 +16,7 @@ that is deleted once read.
 from __future__ import annotations
 
 import bisect
+import heapq
 import json
 import os
 import tempfile
@@ -66,6 +67,25 @@ def clipped_us(merged, lo: float, hi: float) -> float:
     return sum(max(0.0, min(e, hi) - max(s, lo)) for s, e in merged)
 
 
+def innermost_held(events, a: float, b: float) -> dict:
+    """The time (us) of ``[a, b)`` in which each event was the innermost one
+    running (the shortest of those running), by name, of ``events`` that
+    start inside it, sorted by start."""
+    cuts = sorted({a, b} | {min(b, t) for h in events for t in (h["ts"], h["ts"] + h["dur"])})
+    held = defaultdict(float)
+    running, j = [], 0  # a heap of (dur, index) of the events begun so far
+    for lo, hi in zip(cuts, cuts[1:]):
+        while j < len(events) and events[j]["ts"] <= lo:
+            heapq.heappush(running, (events[j]["dur"], j))
+            j += 1
+        # an event that ends before hi ended by lo (its end is a cut)
+        while running and events[running[0][1]]["ts"] + running[0][0] < hi:
+            heapq.heappop(running)
+        if running:
+            held[events[running[0][1]]["name"]] += hi - lo
+    return held
+
+
 class Region:
     """The events of one profiled region (times in us, the trace's clock)."""
 
@@ -111,7 +131,11 @@ class Region:
     def breakdown(self, top: int = 10) -> dict:
         """The device operations that took most time, and the longest idle
         gaps of the device, each by the innermost host event that was
-        running when the gap began."""
+        running when the gap began. A gap that begins while no host event
+        runs (the region's opening gap, before the program's first span)
+        is split among the host events by the time each was the innermost
+        one running in it; ``(no host event)`` keeps the time in which none
+        ran."""
         by_op = defaultdict(float)
         for k in self.device:
             by_op[k["name"]] += k["dur"] / 1e6
@@ -131,8 +155,14 @@ class Region:
                 continue
             i = bisect.bisect_right(starts, a)
             running = [h for h in host[max(0, i - LOOKBACK):i] if a < h["ts"] + h["dur"]]
-            name = min(running, key=lambda h: h["dur"])["name"] if running else "(no host event)"
-            by_host[name] += (b - a) / 1e6
+            if running:
+                by_host[min(running, key=lambda h: h["dur"])["name"]] += (b - a) / 1e6
+                continue
+            held = innermost_held(host[i:bisect.bisect_left(starts, b)], a, b)
+            held["(no host event)"] += (b - a) - sum(held.values())
+            for name, us in held.items():
+                if us > 0:
+                    by_host[name] += us / 1e6
 
         def first(d):
             return [[n, v] for n, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
